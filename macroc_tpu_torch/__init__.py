@@ -1,10 +1,12 @@
 """macroc_tpu_torch — the macroc FE² macro solver on PyTorch and CUDA.
 
 A port of ``macroc_tpu`` (the JAX/Pallas reference, which stays in the repo
-unchanged) to PyTorch, with the two Pallas kernels of the macro Newton step
-rewritten as hand-written CUDA C++ kernels for Hopper (``sm_90a``):
+unchanged) to PyTorch — the macro Newton step with the J2 and the micro-FE
+(FE²) constitutive engines — with every Pallas kernel of the reference
+rewritten as a hand-written CUDA C++ kernel for Hopper (``sm_90a``):
 
   - K1, the 27-point block-stencil SpMV (``ops/stencil_spmv.py``);
+  - K1v1, its shared-memory-tile variant (``ops/stencil_spmv.py``);
   - K2, the stencil-assembly combine (``ops/assembly.py``).
 
 Module names mirror ``macroc_tpu`` so each counterpart is easy to find.  The

@@ -23,7 +23,7 @@ import torch
 
 from macroc_tpu.config import BC_BENDING, BC_CIRCLE, MacroConfig
 from macroc_tpu.grid import StructuredGrid3D
-from macroc_tpu_torch.fem.kernels import DIAG_OFFSET, STENCIL_OFFSETS
+from macroc_tpu_torch.fem.kernels import DIAG_OFFSET, N_STENCIL, STENCIL_OFFSETS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +88,25 @@ def neighbor_mask_soa(mask_soa: torch.Tensor) -> torch.Tensor:
         ],
         dim=0,
     )
+
+
+def apply_bc_stencil_flat(Af: torch.Tensor, bc: BCData) -> torch.Tensor:
+    """Symmetric Dirichlet elimination on the FLAT block layout
+    Af (...,nx,ny,nz,243), entry j = o*9 + d*3 + e
+    (fem.kernels.assemble_stencil_flat), IN PLACE; the mask (nx,ny,nz,3) is
+    shared by every grid of the batch.  Returns Af."""
+    mask = bc.mask
+    sp = mask.shape[:3]
+    # rows: entries with d constrained at p; cols: entries with e
+    # constrained at the o-neighbour of p
+    row = mask[:, :, :, None, :, None].expand(sp + (N_STENCIL, 3, 3))
+    nm = neighbor_mask_soa(mask.permute(3, 0, 1, 2)).permute(2, 3, 4, 0, 1)
+    col = nm[:, :, :, :, None, :].expand(sp + (N_STENCIL, 3, 3))
+    Af.masked_fill_((row | col).reshape(sp + (N_STENCIL * 9,)), 0.0)
+    # unit diagonal at constrained dofs: j = 9*DIAG_OFFSET + 4*d
+    d0 = 9 * DIAG_OFFSET
+    Af[..., d0:d0 + 9:4] += mask.to(Af.dtype)
+    return Af
 
 
 def apply_bc_stencil_soa(A_soa: torch.Tensor, bc: BCData) -> torch.Tensor:

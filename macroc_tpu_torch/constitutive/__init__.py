@@ -25,11 +25,19 @@ def make_engine(cfg, dtype: torch.dtype, device: torch.device):
     if kind == "j2":
         return J2Engine(cfg.micro_mat_1, dtype=dtype, device=device)
     if kind == "microfe":
-        raise NotImplementedError(
-            "the micro-FE (FE²) engine is not ported to macroc_tpu_torch yet "
-            "(ROADMAP.md queue 1, micro-FE port); the flags select it because "
-            "micro_mat_1 != micro_mat_2 on a heterogeneous micro geometry — "
-            "use macroc_tpu for FE² runs"
+        from macroc_tpu_torch.constitutive.microfe import MicroFEEngine
+
+        return MicroFEEngine(
+            n=cfg.micro_n,
+            micro_type=cfg.micro_type,
+            mat1=cfg.micro_mat_1,
+            mat2=cfg.micro_mat_2,
+            params=cfg.micro_params,
+            dtype=dtype,
+            device=device,
+            elastic_fastpath=cfg.micro_elastic_fastpath,
+            precond=cfg.micro_precond,
+            active_chunk=cfg.micro_active_chunk,
         )
     raise ValueError(f"unknown constitutive engine '{kind}'")
 

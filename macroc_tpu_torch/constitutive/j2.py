@@ -22,7 +22,8 @@ Consistent tangent:
   C_ep = kappa 1x1 + 2 mu theta I_dev - 2 mu thetabar n x n
 
 Material constants enter as Python floats, which never promote a tensor's
-dtype: a float32 run stays float32 on the card.
+dtype: a float32 run stays float32 on the card.  The micro-FE engine
+passes per-element material fields instead (``j2_radial_return``).
 """
 
 from __future__ import annotations
@@ -46,6 +47,90 @@ class J2State:
     alpha: torch.Tensor  # (...,)
 
 
+def _minor(v, k: int):
+    """A material parameter broadcast against k trailing minor dims: a
+    Python float as it is, a field tensor with k singleton dims added."""
+    return v[(...,) + (None,) * k] if torch.is_tensor(v) else v
+
+
+def j2_radial_return(eps, eps_p, alpha, lam, mu, Sy, Ka, C=None,
+                     tangent: bool = True):
+    """Functional radial-return map, shared by J2Engine (scalar material)
+    and the micro-FE engine (per-micro-element material fields).
+
+    lam, mu, Sy, Ka are Python floats or tensors that broadcast against the
+    batch eps[..., 0].  The trial stress is lam tr(e) I + 2 mu e (shear rows
+    mu * gamma), or C @ e when the engine passes its 6x6 elastic matrix C,
+    which is then also the elastic tangent.  ``tangent=False`` skips the
+    consistent tangent (ctan is None), for callers that only screen.
+
+    Returns (stress, ctan, eps_p_new, alpha_new, f_trial, plastic); the new
+    internal variables equal the old ones where the GP stays elastic."""
+    kappa = lam + 2.0 * mu / 3.0
+    e = eps - eps_p
+    if C is None:
+        tr = e[..., 0] + e[..., 1] + e[..., 2]
+        mu1 = _minor(mu, 1)
+        sig_tr = torch.cat(
+            [(lam * tr)[..., None] + 2.0 * mu1 * e[..., :3], mu1 * e[..., 3:]],
+            dim=-1,
+        )
+    else:
+        sig_tr = e @ C.T
+    del e
+
+    p = (sig_tr[..., 0] + sig_tr[..., 1] + sig_tr[..., 2]) / 3.0
+    s = sig_tr.clone()
+    s[..., :3] -= p[..., None]
+    snorm = torch.sqrt(
+        torch.sum(s[..., :3] ** 2, dim=-1)
+        + 2.0 * torch.sum(s[..., 3:] ** 2, dim=-1)
+    )
+    f_trial = snorm - _SQ23 * (Sy + Ka * alpha)
+    plastic = f_trial > 0.0
+
+    dgamma = torch.where(
+        plastic, f_trial / (2.0 * mu + (2.0 / 3.0) * Ka), 0.0
+    )
+    safe = torch.clamp_min(snorm, 1e-30)
+    n = s / safe[..., None]
+    del s
+
+    stress = sig_tr - (2.0 * mu * dgamma)[..., None] * n
+    del sig_tr
+
+    # engineering plastic-strain increment: shear entries doubled
+    dn = n.clone()
+    dn[..., 3:] *= 2.0
+    eps_p_new = torch.where(plastic[..., None], eps_p + dgamma[..., None] * dn, eps_p)
+    del dn
+    alpha_new = torch.where(plastic, alpha + _SQ23 * dgamma, alpha)
+
+    ctan = None
+    if tangent:
+        # consistent tangent, summed in the reference's order:
+        # (kappa 1x1 + 2mu theta I_dev) - (2mu thetabar) n x n
+        dt, dev = dgamma.dtype, dgamma.device
+        ones33 = torch.as_tensor(_ONES33, dtype=dt, device=dev)
+        i_dev = torch.as_tensor(_I_DEV, dtype=dt, device=dev)
+        theta = 1.0 - 2.0 * mu * dgamma / safe
+        thetabar = 1.0 / (1.0 + Ka / (3.0 * mu)) - (1.0 - theta)
+        C_ep = ((2.0 * mu) * theta)[..., None, None] * i_dev
+        C_ep += _minor(kappa, 2) * ones33
+        nn = n[..., :, None] * n[..., None, :]
+        C_ep -= nn.mul_(((2.0 * mu) * thetabar)[..., None, None])
+        del nn
+        if C is None:
+            C = _minor(kappa, 2) * ones33 + _minor(2.0 * mu, 2) * i_dev
+        ctan = torch.where(plastic[..., None, None], C_ep, C)
+    return stress, ctan, eps_p_new, alpha_new, f_trial, plastic
+
+
+_ONES33 = np.zeros((6, 6))
+_ONES33[:3, :3] = 1.0
+_I_DEV = np.diag([1, 1, 1, 0.5, 0.5, 0.5]) - _ONES33 / 3.0
+
+
 class J2Engine:
     def __init__(self, mat: MaterialParams, dtype: torch.dtype,
                  device: torch.device):
@@ -53,11 +138,6 @@ class J2Engine:
         self.dtype = dtype
         self.device = device
         self._C = torch.as_tensor(elastic_matrix(mat), dtype=dtype, device=device)
-        ones33 = np.zeros((6, 6))
-        ones33[:3, :3] = 1.0
-        i_dev = np.diag([1, 1, 1, 0.5, 0.5, 0.5]) - ones33 / 3.0
-        self._ones33 = torch.as_tensor(ones33, dtype=dtype, device=device)
-        self._i_dev = torch.as_tensor(i_dev, dtype=dtype, device=device)
 
     def init_state(self, batch_shape: Tuple[int, ...]) -> J2State:
         z = dict(dtype=self.dtype, device=self.device)
@@ -68,56 +148,15 @@ class J2Engine:
 
     def homogenize(self, eps: torch.Tensor, state: J2State) -> HomogenizeResult:
         mat = self.mat
-        mu, lam, Ka, Sy = mat.mu, mat.lam, mat.Ka, mat.Sy
-        kappa = lam + 2.0 * mu / 3.0
-
-        e = eps - state.eps_p
-        sig_tr = e @ self._C.T
-
-        p = (sig_tr[..., 0] + sig_tr[..., 1] + sig_tr[..., 2]) / 3.0
-        s = sig_tr.clone()
-        s[..., :3] -= p[..., None]
-        snorm = torch.sqrt(
-            torch.sum(s[..., :3] ** 2, dim=-1)
-            + 2.0 * torch.sum(s[..., 3:] ** 2, dim=-1)
-        )
-        f_trial = snorm - _SQ23 * (Sy + Ka * state.alpha)
-        plastic = f_trial > 0.0
-
-        dgamma = torch.where(
-            plastic, f_trial / (2.0 * mu + (2.0 / 3.0) * Ka), 0.0
-        )
-        safe = torch.clamp_min(snorm, 1e-30)
-        n = s / safe[..., None]
-
-        stress = sig_tr - (2.0 * mu * dgamma)[..., None] * n
-
-        # engineering plastic-strain increment: shear entries doubled
-        dn = n.clone()
-        dn[..., 3:] *= 2.0
-        eps_p_new = state.eps_p + dgamma[..., None] * dn
-        alpha_new = state.alpha + _SQ23 * dgamma
-
-        # consistent tangent, summed in the reference's order:
-        # (kappa 1x1 + 2mu theta I_dev) - (2mu thetabar) n x n
-        theta = 1.0 - 2.0 * mu * dgamma / safe
-        thetabar = 1.0 / (1.0 + Ka / (3.0 * mu)) - (1.0 - theta)
-        C_ep = ((2.0 * mu) * theta)[..., None, None] * self._i_dev
-        C_ep += kappa * self._ones33
-        nn = n[..., :, None] * n[..., None, :]
-        C_ep -= nn.mul_(((2.0 * mu) * thetabar)[..., None, None])
-        del nn
-        ctan = torch.where(plastic[..., None, None], C_ep, self._C)
-
-        trial = J2State(
-            eps_p=torch.where(plastic[..., None], eps_p_new, state.eps_p),
-            alpha=torch.where(plastic, alpha_new, state.alpha),
+        stress, ctan, eps_p, alpha, f_trial, plastic = j2_radial_return(
+            eps, state.eps_p, state.alpha, mat.lam, mat.mu, mat.Sy, mat.Ka,
+            C=self._C,
         )
         cost = 1.0 + plastic.to(self.dtype)
         return HomogenizeResult(
             stress=stress,
             ctan=ctan,
-            trial_state=trial,
+            trial_state=J2State(eps_p=eps_p, alpha=alpha),
             non_linear=plastic,
             f_trial=f_trial,
             cost=cost,

@@ -113,7 +113,9 @@ class Simulation:
                 )
 
     def run(self) -> dict:
-        """Run the time loop; returns dict(u, state, history, elapsed)."""
+        """Run the time loop; returns dict(u, state, history, elapsed,
+        phases, diag), diag the last step's StepDiagnostics (None if no
+        step ran)."""
         cfg = self.cfg
         L = self._log
         p = self.problem
@@ -133,6 +135,7 @@ class Simulation:
         if vtu_encoding == "auto":
             vtu_encoding = "appended" if self.grid.nnodes > 100_000 else "ascii"
         history = []
+        diag = None
         t1 = time.time()
         try:
             for time_s in range(cfg.ts):
@@ -151,6 +154,11 @@ class Simulation:
                 nl_gps = int(per_rank.sum())
                 L(f"Non-Linear Gauss points : {nl_gps}\n")
                 L(f"F_trial_max             : {diag.f_trial_max:e}\n")
+                if diag.micro_unconverged:
+                    L(
+                        f"WARNING: {diag.micro_unconverged} micro RVE solves hit "
+                        "the Newton cap above tolerance\n"
+                    )
                 gauss.write_row(time_s, per_rank)
                 info.write_row(
                     time_s, time_s * cfg.dt, U, diag.force, diag.f_trial_max, nl_gps
@@ -196,4 +204,4 @@ class Simulation:
         if cfg.log_phases and timer.totals:
             L(timer.report() + "\n")
         return dict(u=u, state=state, history=history, elapsed=t2 - t1,
-                    phases=dict(timer.totals))
+                    phases=dict(timer.totals), diag=diag)

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``macroc_tpu_torch/csrc``).
 
-The sources are compiled at first use with ``nvcc`` into one shared library
-with a plain C interface, loaded with ``ctypes``.  The library lands in
+The sources are compiled at first use with ``nvcc``, one process per source,
+all started together, and linked into one shared library with a plain C
+interface, loaded with ``ctypes``.  The library lands in
 ``build/kernels/<hash of the sources>/`` at the root of the checkout (listed
 in ``.gitignore``), so an edited source is rebuilt and an unchanged one is
 reused.  A missing ``nvcc`` or a failed build raises; there is no fallback.
@@ -23,11 +24,11 @@ from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
-SOURCES = ("stencil_spmv.cu", "assembly_combine.cu")
+SOURCES = ("stencil_spmv.cu", "stencil_spmv_v1.cu", "assembly_combine.cu")
 BUILD_ROOT = PKG_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -38,6 +39,9 @@ _SIGNATURES = {
     # (A, x, y, nx, ny, nz, halo, stream)
     "macroc_stencil_spmv_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
     "macroc_stencil_spmv_f64": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # (A, x, y, nx, ny, nz, TX, TY, TZ, stream)
+    "macroc_stencil_spmv_v1_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "macroc_stencil_spmv_v1_f64": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # (Ke, A, nx, ny, nz, stream)
     "macroc_assembly_combine_f32": (_P, _P, _I, _I, _I, _P),
     "macroc_assembly_combine_f64": (_P, _P, _I, _I, _I, _P),
@@ -81,20 +85,39 @@ def build() -> Path:
         return lib_path
     nvcc = _nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: a concurrent build never
+    # compile to private names, then rename: a concurrent build never
     # exposes a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *(str(CSRC_DIR / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
+    work = Path(tempfile.mkdtemp(dir=out_dir))
+    objs = [work / (Path(s).stem + ".o") for s in SOURCES]
+    compiles = [
+        [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC_DIR / src)]
+        for src, obj in zip(SOURCES, objs)
+    ]
+    tmp = work / "libmacroc_kernels.so"
+    link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+    try:
+        procs = [
+            subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+            for cmd in compiles
+        ]
+        outs = [p.communicate()[0] for p in procs]
+        for cmd, p, out in zip(compiles, procs, outs):
+            _raise_if_failed(cmd, p.returncode, out)
+        proc = subprocess.run(link, capture_output=True, text=True)
+        _raise_if_failed(link, proc.returncode, proc.stdout + proc.stderr)
+        os.replace(tmp, lib_path)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return lib_path
+
+
+def _raise_if_failed(cmd, returncode: int, output: str) -> None:
+    if returncode != 0:
         raise RuntimeError(
             "nvcc failed building the macroc_tpu_torch kernels:\n"
-            + " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+            + " ".join(cmd) + "\n" + output
         )
-    os.replace(tmp, lib_path)
-    return lib_path
 
 
 def load() -> ctypes.CDLL:

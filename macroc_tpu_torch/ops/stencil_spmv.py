@@ -1,12 +1,13 @@
-"""27-point 3x3-block stencil SpMV in SoA layout: kernel K1 and its plain
-version (replaces ``macroc_tpu/ops/stencil_pallas.py``).
+"""27-point 3x3-block stencil SpMV in SoA layout: kernels K1 and K1v1 and
+their plain version (replaces ``macroc_tpu/ops/stencil_pallas.py``).
 
 Layout: A_soa (27,3,3,nx,ny,nz), vectors (3,nx,ny,nz).  nnz accounting for
 the SpMV metric: 243 stored coefficients per node.
 
-``stencil_matvec`` launches the CUDA kernel (``csrc/stencil_spmv.cu``) for
-CUDA tensors and runs ``stencil_matvec_soa`` for CPU tensors; nothing falls
-back from one to the other.
+``stencil_matvec`` launches K1 (``csrc/stencil_spmv.cu``) and
+``stencil_matvec_v1`` K1v1 (``csrc/stencil_spmv_v1.cu``, the shared-memory
+tile form) for CUDA tensors; both run ``stencil_matvec_soa`` for CPU
+tensors.  Nothing falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -77,10 +78,7 @@ def stencil_matvec(
             f"stencil_matvec takes float32 or float64 A and x of one dtype, "
             f"got {A_soa.dtype} and {x_soa.dtype}"
         )
-    if x_soa.device != A_soa.device:
-        raise ValueError("A_soa and x_soa must be on the same device")
-    if not (A_soa.is_contiguous() and x_soa.is_contiguous()):
-        raise ValueError("stencil_matvec needs contiguous A_soa and x_soa")
+    _check_device_layout(A_soa, x_soa, "stencil_matvec")
     y = torch.empty((3, nx, ny, nz), dtype=x_soa.dtype, device=x_soa.device)
     lib = _build.load()
     with torch.cuda.device(A_soa.device):
@@ -98,4 +96,82 @@ stencil_matvec.launches = 0
 _ENTRY = {
     torch.float32: "macroc_stencil_spmv_f32",
     torch.float64: "macroc_stencil_spmv_f64",
+}
+
+
+def _check_device_layout(A_soa, x_soa, what):
+    if x_soa.device != A_soa.device:
+        raise ValueError("A_soa and x_soa must be on the same device")
+    if not (A_soa.is_contiguous() and x_soa.is_contiguous()):
+        raise ValueError(f"{what} needs contiguous A_soa and x_soa")
+
+
+#: K1v1's default node tile: 512 threads, 14,688 bytes of shared memory in
+#: float32 and 29,376 in float64 (csrc/stencil_spmv_v1.cu)
+V1_TILE = (4, 4, 32)
+_MAX_THREADS = 1024
+_MAX_SMEM = 232_448  # bytes of shared memory one block may use on Hopper
+
+
+def v1_tile_check(tile, itemsize: int):
+    """(TX, TY, TZ) as ints; raises ValueError when the tile's thread count
+    (one thread per node) or its staged x halo window does not fit a
+    block."""
+    t = tuple(int(v) for v in tile)
+    if len(t) != 3 or min(t) < 1:
+        raise ValueError(f"tile must be three positive extents, got {tile!r}")
+    threads = t[0] * t[1] * t[2]
+    smem = 3 * (t[0] + 2) * (t[1] + 2) * (t[2] + 2) * itemsize
+    if threads > _MAX_THREADS:
+        raise ValueError(
+            f"tile {t} needs {threads} threads, above the block limit {_MAX_THREADS}"
+        )
+    if smem > _MAX_SMEM:
+        raise ValueError(
+            f"tile {t} stages {smem} bytes of x, above the {_MAX_SMEM} bytes "
+            "of shared memory a block may use"
+        )
+    return t
+
+
+def stencil_matvec_v1(
+    A_soa: torch.Tensor, x_soa: torch.Tensor, tile=V1_TILE
+) -> torch.Tensor:
+    """y_soa = A x through kernel K1v1 (CUDA tensors) or the plain version
+    (CPU tensors).  ``tile`` is the block's (TX, TY, TZ) node tile; one that
+    does not fit a block raises ValueError on either device.  Counts kernel
+    launches in ``stencil_matvec_v1.launches``."""
+    TX, TY, TZ = v1_tile_check(tile, A_soa.element_size())
+    if not A_soa.is_cuda:
+        return stencil_matvec_soa(A_soa, x_soa)
+    from macroc_tpu_torch.ops import _build
+
+    nx, ny, nz = A_soa.shape[-3:]
+    if A_soa.shape != (27, 3, 3, nx, ny, nz):
+        raise ValueError(f"A_soa must be (27,3,3,nx,ny,nz), got {tuple(A_soa.shape)}")
+    if x_soa.shape != (3, nx, ny, nz):
+        raise ValueError(f"x_soa shape {tuple(x_soa.shape)} does not fit A {(nx, ny, nz)}")
+    if A_soa.dtype != x_soa.dtype or A_soa.dtype not in _ENTRY_V1:
+        raise TypeError(
+            f"stencil_matvec_v1 takes float32 or float64 A and x of one dtype, "
+            f"got {A_soa.dtype} and {x_soa.dtype}"
+        )
+    _check_device_layout(A_soa, x_soa, "stencil_matvec_v1")
+    y = torch.empty((3, nx, ny, nz), dtype=x_soa.dtype, device=x_soa.device)
+    lib = _build.load()
+    with torch.cuda.device(A_soa.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, _ENTRY_V1[A_soa.dtype])(
+            A_soa.data_ptr(), x_soa.data_ptr(), y.data_ptr(),
+            nx, ny, nz, TX, TY, TZ, stream,
+        )
+    _build.check(err, "stencil_matvec_v1 (K1v1)")
+    stencil_matvec_v1.launches += 1
+    return y
+
+
+stencil_matvec_v1.launches = 0
+_ENTRY_V1 = {
+    torch.float32: "macroc_stencil_spmv_v1_f32",
+    torch.float64: "macroc_stencil_spmv_v1_f64",
 }

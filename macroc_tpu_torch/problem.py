@@ -14,7 +14,9 @@ Semantics kept exactly (macroc_tpu/problem.py:13-22):
   - newton_max_its bounds the number of solves;
   - the committed state is the trial state of the LAST homogenize, even
     when the loop exits by iteration count after a final solve updated u;
-  - residual b = -(internal force with Dirichlet rows zeroed), u += du.
+  - residual b = -(internal force with Dirichlet rows zeroed), u += du;
+  - micro RVE solves that hit the micro Newton cap are counted over the
+    real elements (``micro_unconverged``).
 
 GP arrays (state, stress, flags) are stored at node shape + (8,): the
 trailing slot per dim is an inactive element that always sees zero strain,
@@ -35,6 +37,7 @@ from macroc_tpu.config import MacroConfig
 from macroc_tpu.grid import StructuredGrid3D, make_grid
 from macroc_tpu_torch import bc as bc_mod
 from macroc_tpu_torch.constitutive import J2State, make_engine
+from macroc_tpu_torch.constitutive.microfe import MicroState
 from macroc_tpu_torch.fem.element import b_for
 from macroc_tpu_torch.fem.kernels import (
     assemble_residual,
@@ -81,6 +84,8 @@ class StepDiagnostics:
     stress: torch.Tensor      # (nex,ney,nez,8,6) committed per-GP stress
     # per-solve monitored residual norms (-ksp_monitor), else None
     ksp_traces: Optional[list] = None
+    # micro RVE solves of the step that hit the micro Newton cap (micro-FE)
+    micro_unconverged: int = 0
 
 
 def resolve_solver_plan_torch(cfg: MacroConfig, node_shape, device) -> dict:
@@ -167,7 +172,8 @@ class MacroProblem:
         # the inactive trailing element slots get zero strain from the pad,
         # so their state stays pristine
         eps = self._pad_gp(compute_strains(u, self.B))
-        hom = self.engine.homogenize(eps, state)
+        with self._phase("homogenize"):
+            hom = self.engine.homogenize(eps, state)
         f = assemble_residual(
             self._crop_gp(hom.stress), self.B, self.grid.wg, self.node_shape
         )
@@ -244,13 +250,19 @@ class MacroProblem:
         traces = [None] * max_its if cfg.ksp_monitor else None
         # if the loop never runs, update_vars commits the state unchanged
         trial, last = state, None
-        it = nhom = 0
+        it = nhom = unconv = 0
         norm0 = 0.0
         done = False
         while not done and it < max_its:
+            # release the previous trial state before the next homogenize
+            # (a micro-FE state copy is ~14 GB at the production size); the
+            # committed state is the last homogenize's trial either way
+            trial = last = None
             with self._phase("residual"):
                 b, norm, hom = self.residual(u, state)
                 norm = float(norm)
+            if hom.unconverged is not None:
+                unconv += int(self._crop_gp(hom.unconverged).sum())
             if nhom == 0:
                 norm0 = norm
             res_norms[nhom] = norm
@@ -295,30 +307,30 @@ class MacroProblem:
             cost=cost,
             stress=stress,
             ksp_traces=traces,
+            micro_unconverged=unconv,
         )
         return u, trial, diag
 
 
-def fields_from_numpy(u: np.ndarray, eps_p: np.ndarray, alpha: np.ndarray, device):
-    """The JAX package's (u, J2State) as numpy — u (nx,ny,nz,3), eps_p
-    node_shape+(8,6), alpha node_shape+(8,) — as the port's tensors."""
+def fields_from_numpy(u: np.ndarray, eps_p: np.ndarray, alpha: np.ndarray,
+                      device, micro_u: Optional[np.ndarray] = None):
+    """The JAX package's (u, state) as numpy — u (nx,ny,nz,3) and the
+    state's leaves at node_shape+(8,...) — as the port's tensors: a J2State
+    from eps_p (..,6) and alpha, or, with ``micro_u``, a MicroState from
+    the flat micro eps_p, alpha and u."""
     dev = torch.device(device)
-    return (
-        torch.tensor(np.asarray(u), device=dev),
-        J2State(
-            eps_p=torch.tensor(np.asarray(eps_p), device=dev),
-            alpha=torch.tensor(np.asarray(alpha), device=dev),
-        ),
-    )
+    t = lambda a: torch.tensor(np.asarray(a), device=dev)
+    if micro_u is None:
+        return t(u), J2State(eps_p=t(eps_p), alpha=t(alpha))
+    return t(u), MicroState(eps_p=t(eps_p), alpha=t(alpha), u=t(micro_u))
 
 
-def fields_to_numpy(u: torch.Tensor, state: J2State):
-    """(u, eps_p, alpha) numpy arrays in the JAX package's layout."""
-    return (
-        u.detach().cpu().numpy(),
-        state.eps_p.detach().cpu().numpy(),
-        state.alpha.detach().cpu().numpy(),
-    )
+def fields_to_numpy(u: torch.Tensor, state):
+    """(u, eps_p, alpha) numpy arrays in the JAX package's layout, plus the
+    micro displacement for a MicroState: (u, eps_p, alpha, micro_u)."""
+    h = lambda a: a.detach().cpu().numpy()
+    out = (h(u), h(state.eps_p), h(state.alpha))
+    return out + (h(state.u),) if isinstance(state, MicroState) else out
 
 
 def run_summary(cfg: MacroConfig, device) -> dict:

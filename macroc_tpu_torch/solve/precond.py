@@ -1,18 +1,32 @@
-"""Preconditioners for the Krylov solvers in SoA layout (torch form of
+"""Preconditioners for the Krylov solvers (torch form of
 ``macroc_tpu/solve/precond.py``): Jacobi (point diagonal, the reference's
-PCJACOBI), block-Jacobi over the 3x3 dof blocks, and identity.  All are
-closures ``z = M^{-1} r`` over (3,nx,ny,nz) fields."""
+PCJACOBI), block-Jacobi over the 3x3 dof blocks, and identity, as closures
+``z = M^{-1} r`` over (3,nx,ny,nz) SoA fields; and Jacobi from the flat
+micro-RVE layout over (...,nx,ny,nz,3) fields."""
 
 from __future__ import annotations
 
 import torch
 
+from macroc_tpu_torch.fem.kernels import DIAG_OFFSET
 from macroc_tpu_torch.ops.stencil import stencil_diag, stencil_diag_blocks
 from macroc_tpu_torch.ops.stencil_spmv import from_soa
 
 
 def identity_precond():
     return lambda r: r
+
+
+def jacobi_precond_flat(Af: torch.Tensor):
+    """z = r / diag(A) from the FLAT block layout Af (...,nx,ny,nz,243):
+    the diagonal entries live at j = 9*DIAG_OFFSET + 4*d."""
+    d0 = 9 * DIAG_OFFSET
+    inv_diag = 1.0 / Af[..., d0:d0 + 9:4]
+
+    def apply(r):
+        return r * inv_diag
+
+    return apply
 
 
 def jacobi_precond_soa(A_soa: torch.Tensor):

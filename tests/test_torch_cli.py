@@ -1,6 +1,7 @@
 """End-to-end CLI of the torch port: ``python -m macroc_tpu_torch`` on the
-CPU (MACROC_PLATFORM=cpu) against ``python -m macroc_tpu`` on one CTest
-grid at float64 (tests/test_cli.py is the model)."""
+CPU (MACROC_PLATFORM=cpu) against ``python -m macroc_tpu`` at float64 on
+one CTest grid and on the FE² golden's launch line (tests/test_cli.py is
+the model)."""
 
 import os
 import subprocess
@@ -22,11 +23,21 @@ FLAGS = [
 ]
 
 
-def _run(package, outdir, extra=(), check=True):
+# the hetero_micro_fe2_3x2x2 golden (tests/make_goldens.py): -micro_mat_2
+# differs from mat_1 on a layered RVE, so "auto" routes to micro-FE
+FE2_FLAGS = [
+    "-da_grid_x", "3", "-da_grid_y", "2", "-da_grid_z", "2", "-lx", "2",
+    "-ly", "1", "-lz", "1", "-bc_type", "0", "-ts", "2", "-dt", "0.1",
+    "-newton_max_its", "5", "-micro_n", "4", "-micro_type", "1",
+    "-micro_mat_2", "1e6,0.3,5e3,2e6", "-dtype", "float64",
+]
+
+
+def _run(package, outdir, extra=(), check=True, flags=FLAGS):
     env = dict(os.environ, MACROC_PLATFORM="cpu", XLA_FLAGS="",
                PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
     r = subprocess.run(
-        [sys.executable, "-m", package, *FLAGS, "-output_dir", str(outdir), *extra],
+        [sys.executable, "-m", package, *flags, "-output_dir", str(outdir), *extra],
         capture_output=True, text=True, env=env, cwd=REPO, timeout=600,
     )
     if check:
@@ -49,6 +60,40 @@ def test_cli_matches_jax_cli(tmp_path):
         ).read_text()
         assert (port / f"solution_{s}-subdo-0.vtu").exists()
     assert not (port / "solution_1.pvtu").exists()
+
+
+def test_fe2_launch_line_matches_jax_cli(tmp_path):
+    """A -micro_mat_2 launch line runs the micro-FE engine; info.dat and
+    gauss_evolution.dat equal the JAX CLI's (the golden survives summation
+    order: tests/test_torch_golden.py)."""
+    port, ref = tmp_path / "port", tmp_path / "ref"
+    out = _run("macroc_tpu_torch", port, ["-log_phases"], flags=FE2_FLAGS).stdout
+    _run("macroc_tpu", ref, flags=FE2_FLAGS)
+    assert "Time Step = 1" in out and "homogenize" in out and "WARNING" not in out
+    assert "Non-Linear Gauss points : 16" in out
+    for name in ("info.dat", "gauss_evolution.dat"):
+        assert (port / name).read_text() == (ref / name).read_text(), name
+
+
+def test_micro_flags_reach_the_engine():
+    """Every -micro_* flag macroc_tpu.config parses arrives in the engine."""
+    from macroc_tpu_torch.constitutive.microfe import MicroFEEngine
+    from macroc_tpu_torch.problem import MacroProblem
+
+    cfg = cli.parse_cli([
+        "-da_grid_x", "3", "-da_grid_y", "2", "-da_grid_z", "2", "-dtype", "float64",
+        "-micro_n", "3", "-micro_type", "0", "-micro_mat_1", "2e7,0.2,2e4,3e6",
+        "-micro_mat_2", "1e6,0.3,5e3,2e6", "-micro_params", "1,1,1,0.4",
+        "-micro_elastic_fastpath", "0", "-micro_precond", "jacobi",
+        "-micro_active_chunk", "7",
+    ])
+    eng = MacroProblem(cfg, "cpu").engine
+    assert isinstance(eng, MicroFEEngine)
+    assert (eng.n, eng.micro_type, eng.params) == (3, 0, (1.0, 1.0, 1.0, 0.4))
+    assert (eng.mat1.E, eng.mat1.nu, eng.mat1.Sy, eng.mat1.Ka) == (2e7, 0.2, 2e4, 3e6)
+    assert (eng.mat2.E, eng.mat2.nu, eng.mat2.Sy, eng.mat2.Ka) == (1e6, 0.3, 5e3, 2e6)
+    assert not eng.elastic_fastpath and eng.precond == "jacobi"
+    assert eng.active_chunk == 7 and eng.dtype == torch.float64
 
 
 def test_cli_rejects_unported_flags(tmp_path):

@@ -1,8 +1,10 @@
-"""The J2 CG goldens (tests/goldens/*.json) through the torch port on the
-CPU at float64.
+"""The CG goldens (tests/goldens/*.json) through the torch port on the CPU
+at float64.
 
-bending_elastic_5x3x3 and default_grid_smoke (the 40x3x40 pancake with the
-line-smoothed MG) are held to tests/test_golden.py's tolerances.
+bending_elastic_5x3x3, default_grid_smoke (the 40x3x40 pancake with the
+line-smoothed MG) and hetero_micro_fe2_3x2x2 (the FE² route: micro-FE RVE
+solves at every GP, micro_n=4) are held to tests/test_golden.py's
+tolerances; the FE² one lands within 1e-10 of every blessed number.
 
 circle_elastic_9x3x9 and bending_plastic_5x3x3 pin roundoff, not the
 algorithm: their weakly constrained (circle patch) or plastic systems make
@@ -29,7 +31,7 @@ from macroc_tpu_torch.problem import run_summary
 
 torch.set_num_threads(1)
 
-EXACT = ["bending_elastic_5x3x3", "default_grid_smoke"]
+EXACT = ["bending_elastic_5x3x3", "default_grid_smoke", "hetero_micro_fe2_3x2x2"]
 ROUNDOFF_BOUND = ["circle_elastic_9x3x9", "bending_plastic_5x3x3"]
 
 

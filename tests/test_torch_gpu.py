@@ -7,7 +7,9 @@ device.  The file imports no jax, so it runs where jax is not installed:
 Tolerances (max abs difference over max abs value): 1e-5 in float32 and
 1e-12 in float64 — the kernels sum in another order than the plain
 versions; the K2 combine adds in the plain version's order, so it is held
-bitwise."""
+bitwise.  The micro-FE homogenize on the card is held against the CPU at
+float64 to 1e-9: its micro CG iterates carry the roundoff of another
+summation order, stopped at the 1e-8 CG tolerance."""
 
 import numpy as np
 import pytest
@@ -17,7 +19,12 @@ from macroc_tpu_torch import MacroConfig
 from macroc_tpu_torch.fem.element import b_matrix
 from macroc_tpu_torch.fem.kernels import assemble_stencil_soa
 from macroc_tpu_torch.ops import assembly as asm
-from macroc_tpu_torch.ops.stencil_spmv import stencil_matvec, stencil_matvec_soa
+from macroc_tpu_torch.constitutive.microfe import MicroFEEngine
+from macroc_tpu_torch.ops.stencil_spmv import (
+    stencil_matvec,
+    stencil_matvec_soa,
+    stencil_matvec_v1,
+)
 from macroc_tpu_torch.problem import MacroProblem
 
 torch.set_num_threads(1)
@@ -67,6 +74,41 @@ def test_k2_kernel_matches_plain(cuda, ne, dtype, tol):
     assert _rel(A, assemble_stencil_soa(ct, B, 0.1, shape)) < tol
 
 
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("tile", [(4, 4, 32), (3, 5, 16), (1, 1, 1024)])
+@pytest.mark.parametrize("shape", [(33, 17, 45), (64, 64, 64)])
+def test_k1v1_kernel_matches_plain(cuda, shape, tile, dtype, tol):
+    rng = np.random.default_rng(6)
+    A = torch.as_tensor(rng.normal(size=(27, 3, 3) + shape), dtype=dtype, device=cuda)
+    x = torch.as_tensor(rng.normal(size=(3,) + shape), dtype=dtype, device=cuda)
+    before = stencil_matvec_v1.launches
+    assert _rel(stencil_matvec_v1(A, x, tile=tile), stencil_matvec_soa(A, x)) < tol
+    assert stencil_matvec_v1.launches == before + 1
+
+
+def test_microfe_homogenize_on_gpu_matches_cpu(cuda):
+    """A two-phase micro_n=4 engine, 24 GPs with 3 driven past yield, fast
+    path on: the batched micro solves on the card against the CPU."""
+    from macroc_tpu_torch import MaterialParams
+
+    rng = np.random.default_rng(7)
+    eps = rng.normal(size=(24, 6)) * 1e-4
+    eps[::8] *= 600.0
+    out = {}
+    for dev in ("cpu", cuda):
+        eng = MicroFEEngine(n=4, micro_type=1, mat1=MaterialParams(),
+                            mat2=MaterialParams(E=1e6, nu=0.3, Sy=1e4, Ka=1e7),
+                            dtype=torch.float64, device=dev, active_chunk=8)
+        out[str(dev)] = eng.homogenize(torch.as_tensor(eps, device=dev),
+                                       eng.init_state((24,)))
+    c, g = out["cpu"], out[str(cuda)]
+    assert torch.equal(g.non_linear.cpu(), c.non_linear) and int(c.non_linear.sum()) == 3
+    for name in ("stress", "ctan", "f_trial"):
+        assert _rel(getattr(g, name).cpu(), getattr(c, name)) < 1e-9, name
+    for name in ("eps_p", "alpha", "u"):
+        assert _rel(getattr(g.trial_state, name).cpu(), getattr(c.trial_state, name)) < 1e-9
+
+
 def test_wrappers_reject_bad_input(cuda):
     A = torch.zeros((27, 3, 3, 4, 4, 4), device=cuda)
     with pytest.raises(ValueError):
@@ -75,6 +117,10 @@ def test_wrappers_reject_bad_input(cuda):
         stencil_matvec(A.half(), torch.zeros((3, 4, 4, 4), device=cuda).half())
     with pytest.raises(ValueError):
         asm.combine_cuda(torch.zeros((576, 3, 3, 3), device=cuda), (4, 4, 5))
+    with pytest.raises(ValueError):
+        stencil_matvec_v1(A, torch.zeros((3, 4, 4, 4), device=cuda), tile=(8, 8, 32))
+    with pytest.raises(TypeError):
+        stencil_matvec_v1(A, torch.zeros((3, 4, 4, 4), device=cuda).double())
 
 
 def test_newton_step_on_gpu_matches_cpu(cuda):

@@ -18,6 +18,7 @@ MODULES = [
     "macroc_tpu_torch.cli",
     "macroc_tpu_torch.driver",
     "macroc_tpu_torch.problem",
+    "macroc_tpu_torch.constitutive.microfe",
     "macroc_tpu_torch.ops.assembly",
     "macroc_tpu_torch.ops.stencil_spmv",
     "macroc_tpu_torch.solve.mg",

@@ -1,9 +1,12 @@
-"""Kernels K1 (stencil SpMV) and K2 (assembly combine) of the torch port.
+"""Kernels K1 and K1v1 (stencil SpMV) and K2 (assembly combine) of the
+torch port.
 
 On the CPU each wrapper runs its plain PyTorch version; those are held
 against the JAX package's Pallas kernels in interpret mode and its jnp
 forms, at float64 on inputs made with numpy.  Tolerances: 1e-12 relative
-for K1 (243-term sums in another order), 1e-10 relative for K2 (as the JAX
+for K1 and K1v1 (243-term sums in another order; K1v1's Pallas kernel
+``stencil_matvec_pallas_v1`` has no interpret mode, and its oracle in the
+JAX bench is ``stencil_matvec_soa``), 1e-10 relative for K2 (as the JAX
 package's own mxu-vs-slab test, tests/test_kernels.py).  Random vectors,
 never a constant one: a constant is a rigid-body null mode of an assembled
 operator.
@@ -23,7 +26,11 @@ from macroc_tpu.ops.stencil_pallas import stencil_matvec_pallas
 from macroc_tpu.ops.stencil_pallas import stencil_matvec_soa as jax_matvec_soa
 from macroc_tpu_torch.fem.kernels import assemble_stencil_soa
 from macroc_tpu_torch.ops import assembly as asm
-from macroc_tpu_torch.ops.stencil_spmv import stencil_matvec, stencil_matvec_soa
+from macroc_tpu_torch.ops.stencil_spmv import (
+    stencil_matvec,
+    stencil_matvec_soa,
+    stencil_matvec_v1,
+)
 
 torch.set_num_threads(1)
 
@@ -84,6 +91,27 @@ def test_k1_cpu_tensor_runs_plain_version():
     before = stencil_matvec.launches
     assert torch.equal(stencil_matvec(A, x), stencil_matvec_soa(A, x))
     assert stencil_matvec.launches == before
+
+
+@pytest.mark.parametrize("tile", [(4, 4, 32), (3, 5, 2)])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_k1v1_plain_matches_jax(shape, tile):
+    rng = np.random.default_rng(4)
+    A = rng.normal(size=(27, 3, 3) + shape)
+    x = rng.normal(size=(3,) + shape)
+    before = stencil_matvec_v1.launches
+    y = stencil_matvec_v1(torch.as_tensor(A), torch.as_tensor(x), tile=tile).numpy()
+    assert stencil_matvec_v1.launches == before  # CPU tensors: plain version
+    assert _rel(y, jax_matvec_soa(jnp.asarray(A), jnp.asarray(x))) < 1e-12
+
+
+@pytest.mark.parametrize("tile", [(8, 8, 32), (1, 1, 1025), (0, 4, 32), (4, 32)])
+def test_k1v1_rejects_bad_tile(tile):
+    """A tile above 1024 threads (one per node), or not three positive
+    extents, raises on any device."""
+    A = torch.zeros((27, 3, 3, 4, 4, 4))
+    with pytest.raises(ValueError):
+        stencil_matvec_v1(A, torch.zeros((3, 4, 4, 4)), tile=tile)
 
 
 def _k2_case(shape, seed):
