@@ -10,8 +10,11 @@ non-zero without the result line):
                random A and x, f32 and f64, with and without the halo
                form, at (64,64,64), (33,17,45) and every node shape at
                which the driven paths launch it (each MG level of the
-               128^3 and 50x3x50 grids, the 10x3x10 grid); then timed at
-               the 128^3 fine-level shape of the main path;
+               128^3 and 50x3x50 grids, the 10x3x10 grid), and its narrow
+               operator forms (bf16 and f16 A with f32 and f64 x, f32 A
+               with f64 x) at the same shapes; then f32, the bf16-operator
+               form and the plain version timed at the 128^3 fine-level
+               shape of the main path;
   3. K1v1    — the shared-memory-tile SpMV kernel vs the plain version at
                the same shapes and types with two tiles, one ragged; then
                the SpMV variant sweep (the JAX bench's bench_spmv): K1v1,
@@ -21,20 +24,33 @@ non-zero without the result line):
                and (20,9,27) elements and at the element shapes of the
                same path levels, f32 and f64; then timed at 127^3
                elements;
-  5. goldens — the four J2 CG goldens and the FE² golden
+  5. goldens — the four J2 CG goldens, the GMRES golden and the FE² golden
                (tests/goldens/*.json) at f64 through the kernels;
   6. main    — ``macroc_tpu_torch.cli`` on the 128^3 J2 + MG bending case,
                3 time steps in f32, with the kernels' launch counters read
                around it;
-  7. microfe — the micro-FE engine at the production RVE (micro_n=10,
+  7. solvers — the CLI on the same line with -mg_dtype bfloat16 (K1's
+               bf16-operator form on every MG level) and with -ksp_type
+               gmres; and the production grid (scripts/production_run.sh,
+               J2, 3 steps) with -operator matfree beside -operator stencil
+               -pc_type jacobi;
+  8. checkpoint — the production_run.sh line as written (J2) with -ts 4
+               -checkpoint_freq 2, then -resume -ts 6, against an
+               uninterrupted 6-step run; checkpoint bytes, write and read
+               seconds;
+  9. profile — the production_run.sh line, 2 steps, with -profile_dir: the
+               trace must hold K1;
+ 10. microfe — the micro-FE engine at the production RVE (micro_n=10,
                two-phase layers, f32) on 2048 GPs, every 10th driven past
                yield: elastic fast path on and off, flags and agreement;
-  8. fe2     — ``macroc_tpu_torch.cli`` on FE² launch lines, with the
+ 11. fe2     — ``macroc_tpu_torch.cli`` on FE² launch lines, with the
                kernels' launch counters read around each: the production
                shape of scripts/production_run.sh (50x3x50 nodes, lx=lz=50,
                circle BC, dt 1e-3, micro_n=10, fast path); the 50x3x50
-               bending line at lx=lz=10; the 10x3x10 full-solve line; and
-               the 50x3x50 bending grid loaded until micro GPs yield.
+               bending line at lx=lz=10; the 10x3x10 full-solve line, 3
+               steps with a checkpoint at step 2 that a -resume run takes
+               up (a MicroState); and the 50x3x50 bending grid loaded until
+               micro GPs yield.
 
 The second-to-last line is the per-kernel JSON record, the last line
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits 1
@@ -58,6 +74,11 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_DIR = os.path.join(REPO, "tests", "goldens")
 TOLS = {torch.float32: 1e-5, torch.float64: 1e-12}
+# K1's narrow operator forms (A dtype, x dtype), held to the x dtype's bound
+NARROW_PAIRS = [(torch.bfloat16, torch.float32), (torch.bfloat16, torch.float64),
+                (torch.float16, torch.float32), (torch.float16, torch.float64),
+                (torch.float32, torch.float64)]
+HBM_GBS = 3350.0  # the H100 SXM's published device-memory rate, GB/s
 
 # the two-phase micro-FE material of BASELINE.md's production-shaped
 # micro-FE record
@@ -74,14 +95,15 @@ FE2_PRODUCTION = GRID_50 + [
 ] + MICRO
 # the 50x3x50 bending line at lx=lz=10, 2 steps (elastic at the default dt)
 FE2_BENDING = GRID_50 + FE2_FLAGS + ["-ts", "2"]
-# the JAX bench's fe2_full shape: the full micro solve at every GP
-FE2_FULL = GRID_10 + FE2_FLAGS + ["-ts", "2", "-micro_elastic_fastpath", "0"]
+# the JAX bench's fe2_full shape: the full micro solve at every GP; 3 steps,
+# with the checkpoint at step 2 that the resume check takes up
+FE2_FULL = GRID_10 + FE2_FLAGS + ["-ts", "3", "-micro_elastic_fastpath", "0",
+                                  "-checkpoint_freq", "2"]
 # the bending line loaded 250x faster, so ~8% of the micro GPs yield in
 # step 2 (U = -0.5: the reference's unit-spacing B quirk makes the 50x3x50
 # strains 5x smaller than the 10x3x10 ones at the same U): the screen and
-# the compacted full solves at scale, with a trial state per homogenize;
-# step 3 screens incrementally against that committed plastic state
-FE2_PLASTIC = GRID_50 + FE2_FLAGS + ["-ts", "4", "-dt", "0.25"]
+# the compacted full solves at scale, with a trial state per homogenize
+FE2_PLASTIC = GRID_50 + FE2_FLAGS + ["-ts", "3", "-dt", "0.25"]
 # f32 agreement of the micro-FE fast path with the full solve (normwise,
 # relative to the largest entry): both routes stop at CG tolerances of 1e-8
 # (equilibrium, elastic basis) and 1e-6 (tangent columns) relative, which
@@ -100,6 +122,20 @@ MAIN_FLAGS = [
     "-constitutive", "j2", "-pc_type", "mg", "-dtype", "float32",
     "-ts", "3", "-log_phases",
 ]
+# scripts/production_run.sh's line as written: equal micro materials, so
+# constitutive "auto" runs J2; later flags override its -ts and
+# -checkpoint_freq
+PRODUCTION_J2 = GRID_50 + [
+    "-lx", "50", "-ly", "1", "-lz", "50", "-ts", "10000", "-dt", "0.001",
+    "-bc_type", "1", "-newton_max_its", "4", "-micro_n", "10", "-micro_type", "1",
+    "-checkpoint_freq", "500", "-log_phases",
+]
+# a resumed run's info.dat rows against the uninterrupted run's: counts
+# and step data exactly, force and f_trial_max to this relative bound.  The
+# state is restored bit for bit, so equal rows are expected; the bound
+# leaves room for f32 roundoff of another summation order should a library
+# routine of the step not be deterministic on the card
+RESUME_RTOL = 1e-5
 
 
 def log(msg):
@@ -186,6 +222,23 @@ def phase_k1(dev, path_shapes):
                       f"{dtype} halo={halo}: {err:.3e}")
         log(f"[K1] {shape}: max rel err " + ", ".join(errs)
             + f" (bounds {TOLS[torch.float32]:g}, {TOLS[torch.float64]:g})")
+        # the narrow operator forms (-mg_dtype levels) at the same shape and
+        # vector dtypes, bounded by the vector dtype; one random operator
+        # per shape (host RNG dominates the phase at 64^3)
+        errs = []
+        A32 = randn(rng, (27, 3, 3) + shape, torch.float32, dev)
+        for a_dtype, dtype in NARROW_PAIRS:
+            A = A32.to(a_dtype)
+            for halo in (False, True):
+                xs = tuple(n + 2 for n in shape) if halo else shape
+                x = randn(rng, (3,) + xs, dtype, dev)
+                err = rel_err(stencil_matvec(A, x, halo=halo),
+                              stencil_matvec_soa(A, x, halo=halo))
+                errs.append(f"{str(a_dtype)[6:]}/{str(dtype)[6:]}{' halo' if halo else ''} "
+                            f"{err:.3e}")
+                check(err < TOLS[dtype], f"K1 narrow form disagrees with its plain version "
+                      f"at {shape} A {a_dtype} x {dtype} halo={halo}: {err:.3e}")
+        log(f"[K1 narrow] {shape}: max rel err " + ", ".join(errs))
     # the 128^3 fine level of the main path, f32
     shape = (128, 128, 128)
     A = randn(rng, (27, 3, 3) + shape, torch.float32, dev)
@@ -200,7 +253,31 @@ def phase_k1(dev, path_shapes):
     log(f"[K1] 128^3 f32: max abs err {float((y - y_ref).abs().max()):.3e}, rel "
         f"{err:.3e}; kernel {ms:.4f} ms ({nnz / ms / 1e6:.2f} Gnnz/s, "
         f"{(243 + 6) * 4 * math.prod(shape) / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms")
-    return dict(max_abs_err=float((y - y_ref).abs().max()), ms=ms, plain_ms=plain_ms)
+    k1 = dict(max_abs_err=float((y - y_ref).abs().max()), ms=ms, plain_ms=plain_ms)
+    # the bf16-operator form at 128^3 with f32 x (a bf16 MG fine level):
+    # the same bf16 values as f32 through K1, and the plain version
+    Ab = A.to(torch.bfloat16)
+    del A
+    Aw = Ab.float()
+    y = stencil_matvec(Ab, x)
+    y_ref = stencil_matvec_soa(Ab, x)
+    err = rel_err(y, y_ref)
+    check(err < TOLS[torch.float32], "K1 bf16-operator form disagrees at 128^3")
+    check(rel_err(stencil_matvec(Aw, x), y_ref) < TOLS[torch.float32],
+          "K1 on the widened operator disagrees with the bf16 form")
+    t = {"bf16 A": time_ms(lambda: stencil_matvec(Ab, x), 50),
+         "f32 A": time_ms(lambda: stencil_matvec(Aw, x), 50),
+         "plain": time_ms(lambda: stencil_matvec_soa(Ab, x), 5)}
+    nodes = math.prod(shape)
+    byts = {"bf16 A": 243 * 2 + 6 * 4, "f32 A": (243 + 6) * 4, "plain": 243 * 2 + 6 * 4}
+    log("[K1 narrow] 128^3 bf16 A, f32 x: max abs err "
+        f"{float((y - y_ref).abs().max()):.3e}, rel {err:.3e}; " + ", ".join(
+            f"{k} {v:.4f} ms ({byts[k] * nodes / v / 1e6:.1f} GB/s at {byts[k]} B/node, "
+            f"{byts[k] * nodes / v / 1e6 / HBM_GBS:.3f} of {HBM_GBS / 1000:g} TB/s)"
+            for k, v in t.items()))
+    narrow = dict(max_abs_err=float((y - y_ref).abs().max()), ms=t["bf16 A"],
+                  plain_ms=t["plain"], f32_operator_ms=t["f32 A"])
+    return k1, narrow
 
 
 def phase_k1v1(dev):
@@ -311,7 +388,7 @@ def phase_k2(dev, path_shapes):
 def golden_configs():
     from macroc_tpu_torch import MacroConfig, MaterialParams
 
-    # tests/make_goldens.py CONFIGS (the CG entries)
+    # tests/make_goldens.py CONFIGS
     return {
         "bending_elastic_5x3x3": MacroConfig(
             nx=5, ny=3, nz=3, lx=4.0, ly=2.0, lz=2.0, bc_type=0, ts=5,
@@ -323,6 +400,9 @@ def golden_configs():
             nx=9, ny=3, nz=9, lx=10.0, ly=1.0, lz=10.0, bc_type=1, rad=2.0,
             ts=4, dt=0.05, dtype="float64"),
         "default_grid_smoke": MacroConfig(ts=2, dtype="float64"),
+        "gmres_circle_9x3x9": MacroConfig(
+            nx=9, ny=3, nz=9, lx=10.0, ly=1.0, lz=10.0, bc_type=1, rad=2.0,
+            ts=3, dt=0.05, ksp_type="gmres", dtype="float64"),
         "hetero_micro_fe2_3x2x2": MacroConfig(
             nx=3, ny=2, nz=2, lx=2.0, ly=1.0, lz=1.0, bc_type=0, ts=2, dt=0.1,
             newton_max_its=5, micro_n=4, micro_type=1,
@@ -334,9 +414,10 @@ def golden_configs():
 def golden_failures(name, got, golden):
     """Mismatches against a golden, with tests/test_torch_golden.py's
     criteria: test_golden.py's tolerances for the goldens that are robust
-    to summation order, the roundoff bounds for the two that pin last bits
-    (circle_elastic_9x3x9, bending_plastic_5x3x3)."""
-    exact = name not in ("circle_elastic_9x3x9", "bending_plastic_5x3x3")
+    to summation order, the roundoff bounds for the three that pin last
+    bits (circle_elastic_9x3x9, bending_plastic_5x3x3, gmres_circle_9x3x9)."""
+    exact = name not in ("circle_elastic_9x3x9", "bending_plastic_5x3x3",
+                         "gmres_circle_9x3x9")
     bad = []
     if len(got["steps"]) != len(golden["steps"]):
         return ["step count"]
@@ -389,25 +470,31 @@ def phase_goldens(dev):
         check(not bad, f"golden {name}")
 
 
-def drive_cli(tag, flags):
+def drive_cli(tag, flags, out_dir=None, ckpt_dir=None, need=("K1", "K2")):
     """``macroc_tpu_torch.cli`` on ``flags`` with the K1/K2 launch counters
     set to 0 just before and read just after; checks every step converged
-    with finite diagnostics.  Returns (result, launches)."""
+    with finite diagnostics and that the kernels in ``need`` launched.
+    Output goes to ``out_dir`` (a temporary directory when None),
+    checkpoints to ``ckpt_dir`` (default ``out_dir/checkpoints``).  Returns
+    (result, launches)."""
     from macroc_tpu_torch import cli
     from macroc_tpu_torch.ops.assembly import assemble_stencil_soa_kernel
     from macroc_tpu_torch.ops.stencil_spmv import stencil_matvec
 
     log(f"[{tag}] python -m macroc_tpu_torch " + " ".join(flags))
-    with tempfile.TemporaryDirectory() as out_dir:
-        argv = flags + ["-output_dir", out_dir]
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = out_dir or tmp
+        argv = flags + ["-output_dir", out_dir, "-checkpoint_dir",
+                        ckpt_dir or os.path.join(out_dir, "checkpoints")]
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        stencil_matvec.launches = 0
+        stencil_matvec.launches = stencil_matvec.narrow_launches = 0
         assemble_stencil_soa_kernel.launches = 0
         result = cli.run(argv)
         launches = dict(K1=stencil_matvec.launches,
+                        K1_narrow=stencil_matvec.narrow_launches,
                         K2=assemble_stencil_soa_kernel.launches)
     peak = torch.cuda.max_memory_allocated()
     maxits = cli.parse_cli(argv).ksp_maxits
@@ -421,16 +508,118 @@ def drive_cli(tag, flags):
               f"{tag} step {h['ts']}: non-finite diagnostics")
     check(bool(torch.isfinite(result["u"]).all()), f"{tag}: non-finite displacement")
     check(bool(torch.isfinite(result["state"].eps_p).all()), f"{tag}: non-finite plastic strain")
-    log(f"[{tag}] launches during the run: K1 {launches['K1']}, K2 {launches['K2']}; "
+    log(f"[{tag}] launches during the run: K1 {launches['K1']} (narrow operator "
+        f"{launches['K1_narrow']}), K2 {launches['K2']}; "
         f"peak device memory {peak / 2**30:.2f} GiB ({base / 2**30:.2f} GiB held "
         f"before the run); phases (s) "
         + json.dumps({k: round(v, 4) for k, v in result["phases"].items()}))
-    check(launches["K1"] > 0 and launches["K2"] > 0, f"{tag}: a kernel of the path never launched")
+    check(all(launches[k] > 0 for k in need), f"{tag}: a kernel of the path never launched")
     return result, launches
+
+
+def info_rows(out_dir):
+    with open(os.path.join(out_dir, "info.dat")) as f:
+        return f.read().splitlines()
+
+
+def compare_rows(tag, got, want):
+    """info.dat rows of a resumed run against the uninterrupted run's: step,
+    time, load and yielded-GP count exactly, force and f_trial_max to
+    RESUME_RTOL."""
+    check(len(got) == len(want), f"{tag}: {len(got)} info.dat rows, want {len(want)}")
+    worst = 0.0
+    for g, w in zip(got, want):
+        g, w = g.split("\t"), w.split("\t")
+        check((g[0], g[1], g[2], g[5]) == (w[0], w[1], w[2], w[5]),
+              f"{tag}: info.dat row {w[0]} differs: {g} vs {w}")
+        for a, b in zip(g[3:5], w[3:5]):
+            worst = max(worst, abs(float(a) - float(b)) / max(abs(float(b)), 1e-30))
+    log(f"[{tag}] resumed info.dat rows {[r.split(chr(9))[0] for r in got]} against the "
+        f"uninterrupted run: text identical {got == want}, max rel dev of force and "
+        f"f_trial_max {worst:.2e} (bound {RESUME_RTOL:g})")
+    check(worst <= RESUME_RTOL, f"{tag}: resumed rows deviate by {worst:.2e}")
 
 
 def phase_main(dev):
     return drive_cli("main", MAIN_FLAGS)[1]
+
+
+def phase_solvers(dev):
+    """The main line with bf16 MG level operators and with GMRES; the
+    production grid with the matrix-free operator (Jacobi, no kernel on its
+    path: the JAX package's matfree path has none either) beside the
+    assembled stencil with Jacobi, whose KSP counts it must match to
+    roundoff."""
+    _, bf16 = drive_cli("main bf16 MG", MAIN_FLAGS + ["-mg_dtype", "bfloat16"])
+    check(bf16["K1_narrow"] > 0, "bf16 MG: K1's narrow operator form never launched")
+    drive_cli("main gmres", MAIN_FLAGS + ["-ksp_type", "gmres"])
+    mf, mf_launches = drive_cli("production matfree",
+                                PRODUCTION_J2 + ["-ts", "3", "-operator", "matfree"], need=())
+    check(mf_launches["K1"] == 0 and mf_launches["K2"] == 0,
+          "matfree: the stencil kernels ran, so the operator was assembled")
+    st, _ = drive_cli("production stencil jacobi",
+                      PRODUCTION_J2 + ["-ts", "3", "-operator", "stencil", "-pc_type", "jacobi"])
+    its = lambda r: [k for h in r["history"] for k in h["ksp_its"]]
+    close = all(abs(a - b) <= max(2, 0.02 * b) for a, b in zip(its(mf), its(st)))
+    log(f"[solvers] Jacobi KSP its matfree {its(mf)} vs stencil {its(st)} (bound: 2% or 2)")
+    check(len(its(mf)) == len(its(st)) and close, "matfree and stencil Jacobi counts differ")
+    return bf16["K1_narrow"]
+
+
+def phase_checkpoint(dev):
+    """scripts/production_run.sh's line as written (J2): 4 steps with a
+    checkpoint every 2, resumed to 6 steps in the same output directory,
+    against an uninterrupted 6-step run."""
+    from macroc_tpu_torch.utils import checkpoint as ckpt
+
+    with tempfile.TemporaryDirectory() as first, tempfile.TemporaryDirectory() as whole:
+        r1, _ = drive_cli("checkpoint first", PRODUCTION_J2 + ["-ts", "4", "-checkpoint_freq", "2"],
+                          out_dir=first)
+        ck = os.path.join(first, "checkpoints")
+        check(sorted(os.listdir(ck)) == ["step_2", "step_4"], f"checkpoints {os.listdir(ck)}")
+        step_dir = os.path.join(ck, "step_4")
+        nbytes = sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir))
+        like = (torch.zeros_like(r1["u"]), type(r1["state"])(
+            *(torch.zeros_like(t) for t in (r1["state"].eps_p, r1["state"].alpha))))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step, (u, state) = ckpt.load_latest(ck, like)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        check(step == 4 and torch.equal(u, r1["u"]) and torch.equal(state.eps_p, r1["state"].eps_p)
+              and torch.equal(state.alpha, r1["state"].alpha), "checkpoint read back differs")
+        log(f"[checkpoint] step_4: {nbytes} bytes (u, eps_p, alpha); write "
+            f"{r1['phases']['checkpoint'] / 2:.4f} s per checkpoint (mean of 2), read to the "
+            f"card {read_s:.4f} s; read back bit for bit")
+        del r1, u, state, like
+        r2, _ = drive_cli("checkpoint resume", PRODUCTION_J2 + ["-ts", "6", "-resume"],
+                          out_dir=first)
+        check([h["ts"] for h in r2["history"]] == [4, 5], "resume did not start at step 4")
+        drive_cli("checkpoint whole", PRODUCTION_J2 + ["-ts", "6"], out_dir=whole)
+        compare_rows("checkpoint", info_rows(first), info_rows(whole))
+
+
+def phase_profile(dev):
+    """-profile_dir on 2 steps of the production_run.sh line: the Chrome
+    trace that torch.profiler writes must hold K1's kernel."""
+    with tempfile.TemporaryDirectory() as out:
+        prof = os.path.join(out, "profile")
+        _, launches = drive_cli("profile", PRODUCTION_J2 + ["-ts", "2", "-profile_dir", prof],
+                                out_dir=out)
+        files = [f for f in os.listdir(prof) if f.startswith("trace_") and f.endswith(".json")]
+        check(len(files) == 1, f"profile: trace files {files}")
+        path = os.path.join(prof, files[0])
+        size = os.path.getsize(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k1 = [e for e in kernels if "stencil_spmv_kernel" in e.get("name", "")]
+    log(f"[profile] trace {size / 2**20:.1f} MiB, {len(events)} events, {len(kernels)} device "
+        f"kernels ({sum(e.get('dur', 0) for e in kernels) / 1e3:.1f} ms), K1 "
+        f"{len(k1)} ({sum(e.get('dur', 0) for e in k1) / 1e3:.1f} ms; "
+        f"{launches['K1']} launches counted)"
+        + (f", named {k1[0]['name'][:80]!r}" if k1 else ""))
+    check(len(k1) > 0, "profile: K1 is not in the profiler trace")
 
 
 def phase_microfe(dev):
@@ -493,15 +682,41 @@ def phase_microfe(dev):
 
 
 def phase_fe2(dev):
+    from macroc_tpu_torch.utils import checkpoint as ckpt
+
     launches = {"fe2_production": drive_cli("fe2 production", FE2_PRODUCTION)[1],
                 "fe2_bending": drive_cli("fe2 bending", FE2_BENDING)[1]}
-    result, launches["fe2_full"] = drive_cli("fe2 full", FE2_FULL)
-    cost = result["diag"].cost
-    log(f"[fe2 full] micro CG its per real GP in the last step: min "
-        f"{float(cost.min()):.0f}, mean {float(cost.mean()):.1f}, max {float(cost.max()):.0f} "
-        f"over {cost.numel()} GPs")
-    check(bool((cost > 0).all()), "fe2 full: a real GP ran no micro solve")
-    del result
+    with tempfile.TemporaryDirectory() as whole, tempfile.TemporaryDirectory() as resumed:
+        result, launches["fe2_full"] = drive_cli("fe2 full", FE2_FULL, out_dir=whole)
+        cost = result["diag"].cost
+        log(f"[fe2 full] micro CG its per real GP in the last step: min "
+            f"{float(cost.min()):.0f}, mean {float(cost.mean()):.1f}, max "
+            f"{float(cost.max()):.0f} over {cost.numel()} GPs")
+        check(bool((cost > 0).all()), "fe2 full: a real GP ran no micro solve")
+        # the MicroState checkpoint the run wrote at step 2, taken up by a
+        # -resume run that redoes step 2 (the files equal those of a run
+        # stopped after step 1: later steps do not touch them)
+        ck = os.path.join(whole, "checkpoints")
+        step_dir = os.path.join(ck, "step_2")
+        nbytes = sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.load_latest(ck, (result["u"], result["state"]))
+        torch.cuda.synchronize()
+        log(f"[checkpoint fe2] step_2: {nbytes} bytes (u, micro eps_p, alpha, u); write "
+            f"{result['phases']['checkpoint']:.4f} s, read to the card "
+            f"{time.perf_counter() - t0:.4f} s")
+        res, _ = drive_cli("checkpoint fe2 resume", FE2_FULL + ["-resume"], out_dir=resumed,
+                           ckpt_dir=ck)
+        check(type(res["state"]).__name__ == "MicroState", "fe2 resume: not a MicroState")
+        check([h["ts"] for h in res["history"]] == [2], "fe2 resume did not start at step 2")
+        compare_rows("checkpoint fe2", info_rows(resumed), info_rows(whole)[2:])
+        dev_u = rel_err(res["u"], result["u"])
+        dev_micro = rel_err(res["state"].u, result["state"].u)
+        log(f"[checkpoint fe2] resumed step 2 against the uninterrupted one: u max rel dev "
+            f"{dev_u:.2e}, micro u {dev_micro:.2e}")
+        check(max(dev_u, dev_micro) <= RESUME_RTOL, "fe2 resume: fields deviate")
+        del result, res
     result, launches["fe2_plastic"] = drive_cli("fe2 plastic", FE2_PLASTIC)
     d = result["diag"]
     log(f"[fe2 plastic] last step: {int(d.non_linear.sum())} non-linear GPs, "
@@ -511,7 +726,8 @@ def phase_fe2(dev):
     return launches
 
 
-PHASES = ("k1", "k1v1", "k2", "goldens", "main", "microfe", "fe2")
+PHASES = ("k1", "k1v1", "k2", "goldens", "main", "solvers", "checkpoint", "profile",
+          "microfe", "fe2")
 
 
 def main():
@@ -534,15 +750,18 @@ def main():
     phase_build()
     path_shapes = path_node_shapes(dev) if {"k1", "k2"} & set(only) else []
     got = {}
+    t_all = time.perf_counter()
     for name in only:
         t0 = time.perf_counter()
         args = (path_shapes,) if name in ("k1", "k2") else ()
         got[name] = globals()[f"phase_{name}"](dev, *args)
         torch.cuda.empty_cache()
         log(f"[time] phase {name}: {time.perf_counter() - t0:.1f} s")
+    log(f"[time] all phases: {time.perf_counter() - t_all:.1f} s")
     if tuple(only) != PHASES:
         log(f"[partial] ran only {','.join(only)}: no result line")
         return 4
+    k1, k1_narrow = got["k1"]
     k1v1, v1_launches = got["k1v1"]
     fe2 = got["fe2"]
     # ``launches`` is the 128^3 J2 main path's count, as since the first
@@ -553,7 +772,7 @@ def main():
              source="macroc_tpu_torch/csrc/stencil_spmv.cu",
              replaces="macroc_tpu/ops/stencil_pallas.py:223",
              launches=got["main"]["K1"], launches_by_path=by_path("K1"),
-             **got["k1"]),
+             **k1),
         dict(name="assembly_combine (K2)", route="cuda",
              source="macroc_tpu_torch/csrc/assembly_combine.cu",
              replaces="macroc_tpu/ops/assembly_pallas.py:80",
@@ -563,6 +782,12 @@ def main():
              source="macroc_tpu_torch/csrc/stencil_spmv_v1.cu",
              replaces="macroc_tpu/ops/stencil_pallas.py:79",
              launches=v1_launches, **k1v1),
+        # K1's bf16-operator entry (the TPU kernel's narrow-A use,
+        # stencil_pallas.py:257-265); launches: the 128^3 bf16 MG run's
+        dict(name="stencil_spmv bf16 operator (K1 narrow form)", route="cuda",
+             source="macroc_tpu_torch/csrc/stencil_spmv.cu",
+             replaces="macroc_tpu/ops/stencil_pallas.py:223",
+             launches=got["solvers"], **k1_narrow),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -2,10 +2,13 @@
 
 A port of ``macroc_tpu`` (the JAX/Pallas reference, which stays in the repo
 unchanged) to PyTorch — the macro Newton step with the J2 and the micro-FE
-(FE²) constitutive engines — with every Pallas kernel of the reference
-rewritten as a hand-written CUDA C++ kernel for Hopper (``sm_90a``):
+(FE²) constitutive engines, CG or GMRES, the assembled or the matrix-free
+operator, MG levels in a narrower dtype, checkpoint/resume and profiling,
+on one device — with every Pallas kernel of the reference rewritten as a
+hand-written CUDA C++ kernel for Hopper (``sm_90a``):
 
-  - K1, the 27-point block-stencil SpMV (``ops/stencil_spmv.py``);
+  - K1, the 27-point block-stencil SpMV, also with an operator narrower
+    than its vectors (``ops/stencil_spmv.py``);
   - K1v1, its shared-memory-tile variant (``ops/stencil_spmv.py``);
   - K2, the stencil-assembly combine (``ops/assembly.py``).
 

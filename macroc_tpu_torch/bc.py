@@ -76,6 +76,17 @@ def apply_bc_on_res(b: torch.Tensor, bc: BCData) -> torch.Tensor:
     return b.masked_fill(bc.mask, 0.0)
 
 
+def bc_operator(matvec, bc: BCData):
+    """A node-layout matvec with symmetric Dirichlet elimination on the fly
+    (the matrix-free operator): y = x on constrained dofs, A restricted to
+    the free dofs elsewhere."""
+
+    def op(x):
+        return torch.where(bc.mask, x, matvec(x.masked_fill(bc.mask, 0.0)))
+
+    return op
+
+
 def neighbor_mask_soa(mask_soa: torch.Tensor) -> torch.Tensor:
     """(27,3,nx,ny,nz): Dirichlet mask of the neighbour at each stencil
     offset (False outside the domain), from an SoA mask (3,nx,ny,nz)."""

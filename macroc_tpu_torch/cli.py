@@ -21,16 +21,9 @@ from macroc_tpu_torch.utils.runtime import setup_runtime
 def unsupported(cfg: MacroConfig) -> list:
     """The reasons this config cannot run on the port yet (empty: it can)."""
     procs = [p for p in (cfg.procs_x, cfg.procs_y, cfg.procs_z) if p is not None]
-    checks = [
-        (any(p > 1 for p in procs), "-da_processors_* > 1 (multi-GPU)"),
-        (cfg.resume, "-resume (checkpoint/resume)"),
-        (cfg.checkpoint_freq > 0, "-checkpoint_freq > 0 (checkpoint/resume)"),
-        (bool(cfg.profile_dir), "-profile_dir (torch.profiler tracing)"),
-        (cfg.ksp_type == "gmres", "-ksp_type gmres (GMRES)"),
-        (cfg.mg_dtype == "bfloat16", "-mg_dtype bfloat16 (bf16 MG levels)"),
-        (cfg.operator == "matfree", "-operator matfree (matfree operator)"),
-    ]
-    return [what for bad, what in checks if bad]
+    if any(p > 1 for p in procs):
+        return ["-da_processors_* > 1 (multi-GPU)"]
+    return []
 
 
 def device_from_env() -> torch.device:

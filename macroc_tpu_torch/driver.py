@@ -5,7 +5,11 @@ Orchestrates MacroProblem.time_step over ``ts`` steps, producing the
 reference's stdout narrative (banner, per-Newton |RES|, per-solve KSP
 lines), info.dat and gauss_evolution.dat rows and optional PVTU output,
 all through the reused ``macroc_tpu.io`` writers.  ``-log_phases`` prints a
-table of device-synchronised phase times at the end.
+table of device-synchronised phase times at the end.  ``-checkpoint_freq``
+saves (u, state) every that many steps and ``-resume`` continues from the
+newest checkpoint in ``-checkpoint_dir`` (``utils/checkpoint.py``, the JAX
+package's format); ``-profile_dir`` traces the time loop with
+``torch.profiler``.
 """
 
 from __future__ import annotations
@@ -23,7 +27,8 @@ from macroc_tpu_torch.fem.kernels import compute_strains
 from macroc_tpu_torch.forces import per_rank_nonlinear_counts_device
 from macroc_tpu_torch.problem import MacroProblem
 from macroc_tpu_torch.solve.cg import KSP_REASON_NAMES
-from macroc_tpu_torch.utils.profiling import PhaseTimer
+from macroc_tpu_torch.utils import checkpoint as ckpt
+from macroc_tpu_torch.utils.profiling import PhaseTimer, trace
 
 
 class Simulation:
@@ -95,8 +100,10 @@ class Simulation:
             if it >= diag.n_solves:
                 continue
             if diag.ksp_traces is not None:
-                # PETSc -ksp_monitor line format
-                for k, rn in enumerate(diag.ksp_traces[it]):
+                # PETSc -ksp_monitor line format (a GMRES trace is
+                # nan-padded to ksp_maxits + 1 entries)
+                its = int(diag.ksp_its[it])
+                for k, rn in enumerate(diag.ksp_traces[it][:its + 1]):
                     L(f"{k:3d} KSP Residual norm {rn:14.12e}\n")
             L(
                 f"KSP : |Ax - b|/|Ax| = {diag.ksp_rnorms[it]:e}\t"
@@ -126,11 +133,21 @@ class Simulation:
             "------------------------------------------------------------\n"
         )
         u, state = p.init_fields()
+        start_step = 0
+        if cfg.resume:
+            loaded = ckpt.load_latest(cfg.checkpoint_dir, (u, state))
+            if loaded is not None:
+                start_step, (u, state) = loaded
+                L(f"Resumed from checkpoint at step {start_step}\n")
         timer = PhaseTimer(p.device)
         p.timer = timer if cfg.log_phases else None
         sync = p.device.type == "cuda"
-        info = InfoWriter(os.path.join(cfg.output_dir, "info.dat"))
-        gauss = GaussEvolutionWriter(os.path.join(cfg.output_dir, "gauss_evolution.dat"))
+        # a resumed run appends, so the files stay a complete history
+        info = InfoWriter(os.path.join(cfg.output_dir, "info.dat"),
+                          append=start_step > 0)
+        gauss = GaussEvolutionWriter(
+            os.path.join(cfg.output_dir, "gauss_evolution.dat"), append=start_step > 0
+        )
         vtu_encoding = cfg.vtu_encoding
         if vtu_encoding == "auto":
             vtu_encoding = "appended" if self.grid.nnodes > 100_000 else "ascii"
@@ -138,58 +155,62 @@ class Simulation:
         diag = None
         t1 = time.time()
         try:
-            for time_s in range(cfg.ts):
-                L(f"\n\nTime Step = {time_s}\n")
-                U = cfg.displacement(time_s)
-                t0 = time.perf_counter()
-                with timer.phase("time_step"):
-                    u, state, diag = p.time_step(u, state, U)
-                    if sync:
-                        torch.cuda.synchronize()
-                seconds = time.perf_counter() - t0
-                self._log_newton(diag)
-                per_rank = per_rank_nonlinear_counts_device(
-                    diag.non_linear, self.grid
-                ).cpu().numpy()
-                nl_gps = int(per_rank.sum())
-                L(f"Non-Linear Gauss points : {nl_gps}\n")
-                L(f"F_trial_max             : {diag.f_trial_max:e}\n")
-                if diag.micro_unconverged:
-                    L(
-                        f"WARNING: {diag.micro_unconverged} micro RVE solves hit "
-                        "the Newton cap above tolerance\n"
-                    )
-                gauss.write_row(time_s, per_rank)
-                info.write_row(
-                    time_s, time_s * cfg.dt, U, diag.force, diag.f_trial_max, nl_gps
-                )
-                history.append(
-                    dict(
-                        ts=time_s,
-                        U=U,
-                        force=diag.force,
-                        f_trial_max=diag.f_trial_max,
-                        nl_gps=nl_gps,
-                        converged=diag.converged,
-                        res_norms=diag.res_norms[:diag.n_homogenize].tolist(),
-                        ksp_its=diag.ksp_its[:diag.n_solves].tolist(),
-                        ksp_reasons=diag.ksp_reasons[:diag.n_solves].tolist(),
-                        seconds=seconds,
-                    )
-                )
-                if cfg.vtu_freq > 0 and time_s % cfg.vtu_freq == 0:
-                    with timer.phase("vtu_output"):
-                        u_real, el_stress, el_strain, el_cost, el_nl = (
-                            self.vtu_fields(u, diag)
+            with trace(cfg.profile_dir or None, p.device):
+                for time_s in range(start_step, cfg.ts):
+                    L(f"\n\nTime Step = {time_s}\n")
+                    U = cfg.displacement(time_s)
+                    t0 = time.perf_counter()
+                    with timer.phase("time_step"):
+                        u, state, diag = p.time_step(u, state, U)
+                        if sync:
+                            torch.cuda.synchronize()
+                    seconds = time.perf_counter() - t0
+                    self._log_newton(diag)
+                    per_rank = per_rank_nonlinear_counts_device(
+                        diag.non_linear, self.grid
+                    ).cpu().numpy()
+                    nl_gps = int(per_rank.sum())
+                    L(f"Non-Linear Gauss points : {nl_gps}\n")
+                    L(f"F_trial_max             : {diag.f_trial_max:e}\n")
+                    if diag.micro_unconverged:
+                        L(
+                            f"WARNING: {diag.micro_unconverged} micro RVE solves hit "
+                            "the Newton cap above tolerance\n"
                         )
-                        write_pvtu(
-                            f"solution_{time_s}", self.grid,
-                            u_real, el_stress, el_strain, el_nl, el_cost,
-                            self.grid.wg,
-                            outdir=cfg.output_dir,
-                            encoding=vtu_encoding,
-                            reduced=True,
+                    gauss.write_row(time_s, per_rank)
+                    info.write_row(
+                        time_s, time_s * cfg.dt, U, diag.force, diag.f_trial_max, nl_gps
+                    )
+                    history.append(
+                        dict(
+                            ts=time_s,
+                            U=U,
+                            force=diag.force,
+                            f_trial_max=diag.f_trial_max,
+                            nl_gps=nl_gps,
+                            converged=diag.converged,
+                            res_norms=diag.res_norms[:diag.n_homogenize].tolist(),
+                            ksp_its=diag.ksp_its[:diag.n_solves].tolist(),
+                            ksp_reasons=diag.ksp_reasons[:diag.n_solves].tolist(),
+                            seconds=seconds,
                         )
+                    )
+                    if cfg.vtu_freq > 0 and time_s % cfg.vtu_freq == 0:
+                        with timer.phase("vtu_output"):
+                            u_real, el_stress, el_strain, el_cost, el_nl = (
+                                self.vtu_fields(u, diag)
+                            )
+                            write_pvtu(
+                                f"solution_{time_s}", self.grid,
+                                u_real, el_stress, el_strain, el_nl, el_cost,
+                                self.grid.wg,
+                                outdir=cfg.output_dir,
+                                encoding=vtu_encoding,
+                                reduced=True,
+                            )
+                    if cfg.checkpoint_freq > 0 and (time_s + 1) % cfg.checkpoint_freq == 0:
+                        with timer.phase("checkpoint"):
+                            ckpt.save(cfg.checkpoint_dir, time_s + 1, (u, state))
         finally:
             info.close()
             gauss.close()

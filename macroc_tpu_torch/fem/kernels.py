@@ -1,6 +1,6 @@
 """Batched element kernels on global node-centric tensors (torch form of
-``macroc_tpu/fem/kernels.py``, the subset the macro Newton step and the
-micro-FE RVE solves run).
+``macroc_tpu/fem/kernels.py``, the subset the macro Newton step, the
+matrix-free operator and the micro-FE RVE solves run).
 
 Layouts are the reference's:
 
@@ -91,6 +91,36 @@ def assemble_residual(
     Bm = B.reshape(-1, NPE * 3)
     fe = (stress.reshape(-1, Bm.shape[0]) @ Bm) * wg
     return scatter_add_elements(fe.reshape(lead + (NPE, 3)), grid_shape)
+
+
+def element_stiffness(ctan: torch.Tensor, B: torch.Tensor, wg: float) -> torch.Tensor:
+    """Dense element stiffness Ae (nex,ney,nez,8,3,8,3):
+    Ae[n,d,m,e] = sum_gp sum_vw B[gp,v,n,d] C[gp,v,w] B[gp,w,m,e] * wg."""
+    return torch.einsum("gvnd,xyzgvw,gwme->xyzndme", B, ctan, B) * wg
+
+
+def assemble_diagonal(
+    ctan: torch.Tensor, B: torch.Tensor, wg: float,
+    grid_shape: Tuple[int, int, int],
+) -> torch.Tensor:
+    """Point diagonal (nx,ny,nz,3) of the operator without assembling it
+    (Jacobi for the matrix-free operator): element node n, dof d
+    contributes sum_gp,vw B[gp,v,n,d] C[gp,v,w] B[gp,w,n,d] * wg."""
+    de = torch.einsum("gvnd,xyzgvw,gwnd->xyznd", B, ctan, B) * wg
+    return scatter_add_elements(de, grid_shape)
+
+
+def matfree_matvec(ctan: torch.Tensor, B: torch.Tensor, wg: float,
+                   grid_shape: Tuple[int, int, int]):
+    """The unassembled operator x -> (sum_e Be^T C Be) x on node-layout
+    fields (nx,ny,nz,3): strains, per-GP tangent, residual scatter."""
+
+    def mv(x):
+        eps = compute_strains(x, B)
+        sig = torch.einsum("xyzgvw,xyzgw->xyzgv", ctan, eps)
+        return assemble_residual(sig, B, wg, grid_shape)
+
+    return mv
 
 
 def assemble_stencil_flat(

@@ -37,8 +37,11 @@ _I = ctypes.c_int
 # C entry points: name -> argument types (all return cudaError_t as int)
 _SIGNATURES = {
     # (A, x, y, nx, ny, nz, halo, stream)
-    "macroc_stencil_spmv_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
-    "macroc_stencil_spmv_f64": (_P, _P, _P, _I, _I, _I, _I, _P),
+    **{
+        f"macroc_stencil_spmv_{pair}": (_P, _P, _P, _I, _I, _I, _I, _P)
+        for pair in ("f32", "f64", "bf16_f32", "bf16_f64", "f16_f32", "f16_f64",
+                     "f32_f64")
+    },
     # (A, x, y, nx, ny, nz, TX, TY, TZ, stream)
     "macroc_stencil_spmv_v1_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "macroc_stencil_spmv_v1_f64": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),

@@ -43,7 +43,9 @@ def stencil_matvec_soa(
 ) -> torch.Tensor:
     """Plain PyTorch y = A x: 27 shifted windows of the zero-padded x, each
     contracted with its (3,3) coefficient planes.  ``halo=True``: x_soa is
-    (3,nx+2,ny+2,nz+2) and already carries its 1-node halo."""
+    (3,nx+2,ny+2,nz+2) and already carries its 1-node halo.  A narrower A
+    (bf16 MG levels) is widened exactly in each product; y has x's
+    dtype."""
     nx, ny, nz = A_soa.shape[-3:]
     xp = x_soa if halo else F.pad(x_soa, (1, 1, 1, 1, 1, 1))
     y = torch.zeros((3, nx, ny, nz), dtype=x_soa.dtype, device=x_soa.device)
@@ -59,7 +61,10 @@ def stencil_matvec(
     A_soa: torch.Tensor, x_soa: torch.Tensor, halo: bool = False
 ) -> torch.Tensor:
     """y_soa = A x through kernel K1 (CUDA tensors) or its plain version
-    (CPU tensors).  Counts kernel launches in ``stencil_matvec.launches``."""
+    (CPU tensors).  A may be stored narrower than x (the pairs of
+    ``_ENTRY``); y has x's dtype.  Any other pair raises TypeError on a CUDA
+    tensor.  Counts kernel launches in ``stencil_matvec.launches``, and
+    those with a narrow operator also in ``stencil_matvec.narrow_launches``."""
     if not A_soa.is_cuda:
         return stencil_matvec_soa(A_soa, x_soa, halo=halo)
     from macroc_tpu_torch.ops import _build
@@ -73,29 +78,42 @@ def stencil_matvec(
             f"x_soa shape {tuple(x_soa.shape)} does not fit A {(nx, ny, nz)} "
             f"with halo={halo}"
         )
-    if A_soa.dtype != x_soa.dtype or A_soa.dtype not in _ENTRY:
+    entry = _ENTRY.get((A_soa.dtype, x_soa.dtype))
+    if entry is None:
         raise TypeError(
-            f"stencil_matvec takes float32 or float64 A and x of one dtype, "
-            f"got {A_soa.dtype} and {x_soa.dtype}"
+            f"stencil_matvec has no kernel for A {A_soa.dtype} with x "
+            f"{x_soa.dtype}; it takes (A, x) in "
+            + ", ".join(f"({str(a)[6:]}, {str(b)[6:]})" for a, b in _ENTRY)
         )
     _check_device_layout(A_soa, x_soa, "stencil_matvec")
     y = torch.empty((3, nx, ny, nz), dtype=x_soa.dtype, device=x_soa.device)
     lib = _build.load()
     with torch.cuda.device(A_soa.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, _ENTRY[A_soa.dtype])(
+        err = getattr(lib, entry)(
             A_soa.data_ptr(), x_soa.data_ptr(), y.data_ptr(),
             nx, ny, nz, h, stream,
         )
     _build.check(err, "stencil_matvec (K1)")
     stencil_matvec.launches += 1
+    if A_soa.dtype != x_soa.dtype:
+        stencil_matvec.narrow_launches += 1
     return y
 
 
 stencil_matvec.launches = 0
+# the launches, among ``launches``, of a narrow-operator entry
+stencil_matvec.narrow_launches = 0
+#: K1's entry point per (A dtype, x dtype): the narrow operator forms take
+#: -mg_dtype level operators with solve-dtype vectors
 _ENTRY = {
-    torch.float32: "macroc_stencil_spmv_f32",
-    torch.float64: "macroc_stencil_spmv_f64",
+    (torch.float32, torch.float32): "macroc_stencil_spmv_f32",
+    (torch.float64, torch.float64): "macroc_stencil_spmv_f64",
+    (torch.bfloat16, torch.float32): "macroc_stencil_spmv_bf16_f32",
+    (torch.bfloat16, torch.float64): "macroc_stencil_spmv_bf16_f64",
+    (torch.float16, torch.float32): "macroc_stencil_spmv_f16_f32",
+    (torch.float16, torch.float64): "macroc_stencil_spmv_f16_f64",
+    (torch.float32, torch.float64): "macroc_stencil_spmv_f32_f64",
 }
 
 

@@ -3,8 +3,8 @@
 
 Per time step: ramp the Dirichlet load, then the Newton loop (strains ->
 constitutive homogenize -> residual -> convergence test -> stencil assembly
--> Dirichlet elimination -> PCG -> update), then commit the constitutive
-state.  The reference's ``lax.while_loop``/``lax.cond`` become a Python
+-> Dirichlet elimination -> CG or GMRES -> update), then commit the
+constitutive state.  The reference's ``lax.while_loop``/``lax.cond`` become a Python
 loop with one host read of |RES| per Newton iteration.
 
 Semantics kept exactly (macroc_tpu/problem.py:13-22):
@@ -40,9 +40,11 @@ from macroc_tpu_torch.constitutive import J2State, make_engine
 from macroc_tpu_torch.constitutive.microfe import MicroState
 from macroc_tpu_torch.fem.element import b_for
 from macroc_tpu_torch.fem.kernels import (
+    assemble_diagonal,
     assemble_residual,
     assemble_stencil_soa,
     compute_strains,
+    matfree_matvec,
 )
 from macroc_tpu_torch.forces import calc_force
 from macroc_tpu_torch.ops.assembly import assemble_stencil_soa_kernel
@@ -53,6 +55,7 @@ from macroc_tpu_torch.ops.stencil_spmv import (
     x_to_soa,
 )
 from macroc_tpu_torch.solve.cg import cg_solve
+from macroc_tpu_torch.solve.gmres import gmres_solve
 from macroc_tpu_torch.solve.mg import build_hierarchy, make_mg_preconditioner
 from macroc_tpu_torch.solve.precond import (
     block_jacobi_precond_soa,
@@ -62,6 +65,8 @@ from macroc_tpu_torch.solve.precond import (
 from macroc_tpu_torch.utils.profiling import no_phase
 
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
+#: storage dtypes -mg_dtype accepts for the V-cycle level operators
+MG_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, **DTYPES}
 
 
 @dataclasses.dataclass
@@ -93,22 +98,21 @@ def resolve_solver_plan_torch(cfg: MacroConfig, node_shape, device) -> dict:
 
     pc_type "auto" keeps the reference rule: MG when a deep hierarchy
     exists along at least two dims (extent >= 17; a thin third dim is
-    semicoarsened), Jacobi otherwise.  On CUDA every operator and every MG
-    level runs kernel K1 ("stencil_cuda") and every assembly kernel K2
-    ("cuda"); on the CPU the plain versions run ("stencil", "slab")."""
-    if cfg.operator == "matfree":
-        raise NotImplementedError(
-            "-operator matfree is not ported to macroc_tpu_torch yet "
-            "(ROADMAP.md, matfree operator)"
-        )
+    semicoarsened), Jacobi otherwise, and always Jacobi under the matfree
+    operator, which has no assembled stencil to build a hierarchy from.
+    On CUDA every stencil operator and every MG level runs kernel K1
+    ("stencil_cuda") and every assembly kernel K2 ("cuda"); on the CPU the
+    plain versions run ("stencil", "slab").  The matfree operator
+    ("matfree") is plain PyTorch on either device, as in the JAX package."""
+    matfree = cfg.operator == "matfree"
     pc_type = cfg.pc_type
     if pc_type == "auto":
         deep_dims = sum(n >= 17 for n in node_shape)
-        pc_type = "mg" if deep_dims >= 2 else "jacobi"
+        pc_type = "mg" if deep_dims >= 2 and not matfree else "jacobi"
     cuda = torch.device(device).type == "cuda"
     return dict(
         pc_type=pc_type,
-        operator="stencil_cuda" if cuda else "stencil",
+        operator="matfree" if matfree else "stencil_cuda" if cuda else "stencil",
         assembly="cuda" if cuda else "slab",
     )
 
@@ -180,12 +184,49 @@ class MacroProblem:
         b = -bc_mod.apply_bc_on_res(f, self.bc)
         return b, torch.sqrt(torch.sum(b * b)), hom
 
+    def _krylov(self, mv, b: torch.Tensor, M):
+        """The configured Krylov method (-ksp_type) on mv, b and M."""
+        cfg = self.cfg
+        common = dict(rtol=cfg.ksp_rtol, abstol=cfg.ksp_abstol, dtol=cfg.ksp_dtol,
+                      maxits=cfg.ksp_maxits)
+        with self._phase("ksp_solve"):
+            if cfg.ksp_type == "cg":
+                return cg_solve(mv, b, M, record_trace=cfg.ksp_monitor, **common)
+            if cfg.ksp_type == "gmres":
+                return gmres_solve(
+                    mv, b, M, restart=cfg.gmres_restart,
+                    record_trace=cfg.ksp_maxits + 1 if cfg.ksp_monitor else 0,
+                    **common,
+                )
+        raise ValueError(f"unknown ksp_type '{cfg.ksp_type}' (cg|gmres)")
+
+    def _matfree_solve(self, ctan: torch.Tensor, b: torch.Tensor, pc_type: str):
+        """The matrix-free operator in node layout.  Jacobi and block-Jacobi
+        both take the point diagonal with constrained rows set to 1; any
+        other pc_type, mg included, runs unpreconditioned, as the JAX
+        package does (ROADMAP.md queue 3, R7)."""
+        g = self.grid
+        with self._phase("precond_setup"):
+            mv = bc_mod.bc_operator(
+                matfree_matvec(ctan, self.B, g.wg, self.node_shape), self.bc
+            )
+            if pc_type in ("jacobi", "bjacobi"):
+                diag = assemble_diagonal(ctan, self.B, g.wg, self.node_shape)
+                diag = diag.masked_fill(self.bc.mask, 1.0)
+                M = lambda r: r / diag
+            else:
+                M = identity_precond()
+        return self._krylov(mv, b, M)
+
     def linear_solve(self, ctan: torch.Tensor, b: torch.Tensor):
         """Assemble the BC-eliminated operator from per-GP tangents ctan
-        (element shape) and run PCG on it.  Returns a KSPResult with x in
-        node layout (nx,ny,nz,3)."""
+        (element shape), or wrap the matrix-free one, and run the Krylov
+        method on it.  Returns a KSPResult with x in node layout
+        (nx,ny,nz,3)."""
         cfg = self.cfg
         plan = resolve_solver_plan_torch(cfg, self.node_shape, self.device)
+        if plan["operator"] == "matfree":
+            return self._matfree_solve(ctan, b, plan["pc_type"])
         matvec = _OPERATORS[plan["operator"]]
         assemble = _ASSEMBLERS[plan["assembly"]]
         with self._phase("assembly"):
@@ -199,16 +240,21 @@ class MacroProblem:
             elif pc_type == "bjacobi":
                 M = block_jacobi_precond_soa(A_soa)
             elif pc_type == "mg":
-                if cfg.mg_dtype and DTYPES.get(cfg.mg_dtype) != self.dtype:
-                    raise NotImplementedError(
-                        "-mg_dtype other than the solve dtype is not ported "
-                        "(ROADMAP.md: the bf16 MG decision waits for an H100 "
-                        "measurement)"
-                    )
                 levels = build_hierarchy(
                     ctan, self.bc.mask.permute(3, 0, 1, 2), self.grid.spacing,
                     cfg.ref_b_quirk, A0_soa=A_soa, assemble_fn=assemble,
                 )
+                mgdt = self._mg_dtype()
+                if mgdt != self.dtype:
+                    # narrower level operators: the smoother's matvecs read
+                    # fewer bytes; line_inv, transfers and vectors keep the
+                    # solve dtype (macroc_tpu/problem.py:472-486)
+                    levels = [
+                        dataclasses.replace(
+                            lv, A_soa=lv.A_soa.to(mgdt), inv_diag=lv.inv_diag.to(mgdt)
+                        )
+                        for lv in levels
+                    ]
                 M = make_mg_preconditioner(
                     levels,
                     nu=cfg.mg_nu,
@@ -217,6 +263,7 @@ class MacroProblem:
                     mv_for=lambda level: matvec,
                     coarse_direct=cfg.mg_coarse_direct,
                     transfer_order=cfg.mg_transfer_order or None,
+                    dtype=self.dtype,
                 )
             elif pc_type == "none":
                 M = identity_precond()
@@ -224,18 +271,19 @@ class MacroProblem:
                 raise ValueError(
                     f"unknown pc_type '{cfg.pc_type}' (auto|none|jacobi|bjacobi|mg)"
                 )
-        if cfg.ksp_type != "cg":
-            raise NotImplementedError(
-                f"-ksp_type {cfg.ksp_type} is not ported to macroc_tpu_torch "
-                "yet (ROADMAP.md: GMRES comes next)"
-            )
-        with self._phase("ksp_solve"):
-            res = cg_solve(
-                partial(matvec, A_soa), x_to_soa(b), M,
-                rtol=cfg.ksp_rtol, abstol=cfg.ksp_abstol, dtol=cfg.ksp_dtol,
-                maxits=cfg.ksp_maxits, record_trace=cfg.ksp_monitor,
-            )
+        res = self._krylov(partial(matvec, A_soa), x_to_soa(b), M)
         return res._replace(x=x_from_soa(res.x))
+
+    def _mg_dtype(self) -> torch.dtype:
+        """The V-cycle level operators' dtype: -mg_dtype, or the solve dtype
+        when it is empty (the JAX package's bf16 default applies on a TPU
+        only, so no device here turns it on by itself)."""
+        name = self.cfg.mg_dtype
+        if not name:
+            return self.dtype
+        if name not in MG_DTYPES:
+            raise ValueError(f"unknown mg_dtype {name!r} ({'|'.join(MG_DTYPES)})")
+        return MG_DTYPES[name]
 
     def time_step(self, u: torch.Tensor, state: Any, U: float):
         """One full time step: returns (u, new_state, diagnostics).  U is the

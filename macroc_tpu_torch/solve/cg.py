@@ -101,7 +101,9 @@ def cg_solve(
         q = matvec(p)
         alpha = rz / _dot(p, q)
         x += alpha * p
-        r -= alpha * q
+        # not in place: the identity preconditioner returns r itself, so
+        # z and p may alias it
+        r = r - alpha * q
         z = precond(r)
         rz_new = _dot(r, z)
         p = z + (rz_new / rz) * p

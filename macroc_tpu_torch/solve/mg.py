@@ -388,6 +388,7 @@ def make_mg_preconditioner(
     levels: List[MGLevel], nu: int = 2, omega: float = 0.6,
     coarse_sweeps: int = 20, mv_for: Optional[Callable] = None,
     coarse_direct: bool = True, transfer_order: Optional[int] = None,
+    dtype: Optional[torch.dtype] = None,
 ):
     """Fixed symmetric V(nu,nu)-cycle closure z = M^{-1} r for PCG.
 
@@ -397,20 +398,30 @@ def make_mg_preconditioner(
     circle patch), else ``coarse_sweeps`` smoother sweeps.  omega 0.6: 0.8
     makes the block-Jacobi V-cycle near-indefinite on hex elasticity.
 
+    ``dtype`` is the vectors' dtype (default: the level operators').  Level
+    operators stored narrower (``-mg_dtype``) are read as they are; the
+    transfers are built in the vectors' dtype, and the coarsest dense
+    inverse is taken in at least float32 and stored in the level dtype, as
+    the JAX package does, then widened exactly where it is applied.
+
     The transfer matrices and colour masks are built here, once per
     hierarchy, so a V-cycle issues device work only."""
     n_levels = len(levels)
+    if dtype is None:
+        dtype = levels[0].A_soa.dtype
     mvs = [stencil_matvec_soa if mv_for is None else mv_for(lv) for lv in levels]
-    coarse_inv = (
-        torch.linalg.inv(_dense_from_soa(levels[-1].A_soa)) if coarse_direct else None
-    )
+    coarse_inv = None
+    if coarse_direct:
+        Ac = levels[-1].A_soa
+        dense = _dense_from_soa(Ac).to(torch.promote_types(Ac.dtype, torch.float32))
+        coarse_inv = torch.linalg.inv(dense).to(Ac.dtype).to(dtype)
     if transfer_order is None:
         # cubic on semicoarsened pancakes, linear on cubes
         transfer_order = 3 if levels[0].line_dim >= 0 else 1
     mats = [
         transfer_matrices(
             fine.A_soa.shape[-3:], coarse.A_soa.shape[-3:], transfer_order,
-            fine.A_soa.dtype, fine.A_soa.device,
+            dtype, fine.A_soa.device,
         )
         for fine, coarse in zip(levels[:-1], levels[1:])
     ]

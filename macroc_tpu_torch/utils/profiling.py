@@ -1,5 +1,6 @@
-"""Named wall-clock phases with device synchronisation (the torch form of
-``macroc_tpu.utils.profiling.PhaseTimer``).
+"""Named wall-clock phases with device synchronisation and a profiler
+trace (the torch forms of ``macroc_tpu.utils.profiling.PhaseTimer`` and
+``trace``).
 
 CUDA work is asynchronous: a host clock around it measures the enqueue.
 Each phase therefore synchronises the device on entry and on exit, so the
@@ -9,9 +10,10 @@ allowed (an outer phase includes its inner ones)."""
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import torch
 
@@ -47,3 +49,27 @@ class PhaseTimer:
 def no_phase(name: str) -> Iterator[None]:
     """Stand-in for PhaseTimer.phase when phases are not logged."""
     yield
+
+
+@contextlib.contextmanager
+def trace(logdir: Optional[str], device: torch.device) -> Iterator[None]:
+    """``torch.profiler`` over the enclosed work when ``logdir`` is given
+    (-profile_dir), with CUDA activity on a CUDA device; on exit it writes a
+    Chrome trace ``trace_<time>.json`` into ``logdir``.  Without a logdir it
+    does nothing."""
+    if not logdir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+    os.makedirs(logdir, exist_ok=True)
+    prof.export_chrome_trace(
+        os.path.join(logdir, f"trace_{time.strftime('%Y%m%d_%H%M%S')}.json")
+    )

@@ -1,12 +1,14 @@
 """End-to-end CLI of the torch port: ``python -m macroc_tpu_torch`` on the
 CPU (MACROC_PLATFORM=cpu) against ``python -m macroc_tpu`` at float64 on
-one CTest grid and on the FE² golden's launch line (tests/test_cli.py is
-the model)."""
+one CTest grid, with CG, GMRES and the matrix-free operator, and on the FE²
+golden's launch line (tests/test_cli.py is the model); the flags the port
+accepts and the one it refuses (multi-GPU)."""
 
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -97,19 +99,69 @@ def test_micro_flags_reach_the_engine():
 
 
 def test_cli_rejects_unported_flags(tmp_path):
-    r = _run("macroc_tpu_torch", tmp_path, ["-ksp_type", "gmres"], check=False)
+    r = _run("macroc_tpu_torch", tmp_path, ["-da_processors_x", "2"], check=False)
     assert r.returncode != 0
-    assert "NotImplementedError" in r.stderr and "gmres" in r.stderr
+    assert "NotImplementedError" in r.stderr and "-da_processors_" in r.stderr
 
 
-@pytest.mark.parametrize("flags,named", [
-    (["-da_processors_x", "2"], "-da_processors_*"), (["-resume"], "-resume"),
-    (["-checkpoint_freq", "2"], "-checkpoint_freq"), (["-profile_dir", "p"], "-profile_dir"),
-    (["-mg_dtype", "bfloat16"], "-mg_dtype"), (["-operator", "matfree"], "-operator"),
-])
+@pytest.mark.parametrize("flags,named", [(["-da_processors_x", "2"], "-da_processors_*")])
 def test_unsupported_flags_named(flags, named):
+    """Multi-GPU is the one configuration the port refuses."""
     missing = cli.unsupported(cli.parse_cli(flags))
     assert len(missing) == 1 and missing[0].startswith(named)
+
+
+@pytest.mark.parametrize("flags", [
+    ["-resume"], ["-checkpoint_freq", "2"], ["-profile_dir", "{tmp}/prof"],
+    ["-mg_dtype", "bfloat16", "-pc_type", "mg"], ["-operator", "matfree"],
+])
+def test_flags_now_accepted(tmp_path, monkeypatch, flags):
+    """The flags the port used to refuse run through the CLI: a 3-step
+    bending line with the flag converges every step."""
+    flags = [f.replace("{tmp}", str(tmp_path)) for f in flags]
+    argv = FLAGS[:-2] + ["-output_dir", str(tmp_path / "out"),
+                         "-checkpoint_dir", str(tmp_path / "ck")] + flags
+    assert cli.unsupported(cli.parse_cli(argv)) == []
+    monkeypatch.setenv("MACROC_PLATFORM", "cpu")
+    result = cli.run(argv)
+    assert [h["ts"] for h in result["history"]] == [0, 1, 2]
+    assert all(h["converged"] for h in result["history"])
+
+
+def test_profile_dir_writes_a_trace(tmp_path):
+    prof = tmp_path / "prof"
+    _run("macroc_tpu_torch", tmp_path, ["-profile_dir", str(prof)])
+    traces = list(prof.glob("trace_*.json"))
+    assert len(traces) == 1
+    text = traces[0].read_text()
+    assert '"traceEvents"' in text and "aten::" in text
+
+
+@pytest.mark.parametrize("extra", [["-ksp_type", "gmres"], ["-operator", "matfree"],
+                                   ["-ksp_type", "gmres", "-operator", "matfree"]])
+def test_solver_flags_match_jax_cli(tmp_path, extra):
+    """GMRES and the matrix-free operator through both CLIs, with the KSP
+    monitor and reasons: the same KSP lines and info.dat."""
+    port, ref = tmp_path / "port", tmp_path / "ref"
+    extra = extra + ["-ksp_monitor", "-ksp_converged_reason"]
+    out_p = _run("macroc_tpu_torch", port, extra).stdout
+    out_r = _run("macroc_tpu", ref, extra).stdout
+
+    def ksp(out):
+        lines = out.splitlines()
+        its = [l.split("Its = ")[1] for l in lines if l.startswith("KSP :")]
+        reasons = [l for l in lines if l.startswith("Linear solve")]
+        monitor = [float(l.split()[-1]) for l in lines if "KSP Residual norm" in l]
+        return its, reasons, np.array(monitor)
+
+    its_p, reasons_p, mon_p = ksp(out_p)
+    its_r, reasons_r, mon_r = ksp(out_r)
+    assert its_p == its_r and reasons_p == reasons_r and len(its_p) >= 2
+    assert "CONVERGED_RTOL" in reasons_p[0]
+    assert mon_p.shape == mon_r.shape == (sum(map(int, its_p)) + len(its_p),)
+    assert np.allclose(mon_p, mon_r, rtol=1e-6, atol=1e-10 * mon_r.max())
+    for name in ("info.dat", "gauss_evolution.dat"):
+        assert (port / name).read_text() == (ref / name).read_text(), name
 
 
 def test_cuda_default_raises_without_a_card(monkeypatch):

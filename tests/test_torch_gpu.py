@@ -11,11 +11,16 @@ bitwise.  The micro-FE homogenize on the card is held against the CPU at
 float64 to 1e-9: its micro CG iterates carry the roundoff of another
 summation order, stopped at the 1e-8 CG tolerance."""
 
+import math
+
 import numpy as np
 import pytest
 import torch
 
-from macroc_tpu_torch import MacroConfig
+from macroc_tpu.grid import make_grid
+from macroc_tpu_torch import MacroConfig, MaterialParams
+from macroc_tpu_torch import bc as tbc
+from macroc_tpu_torch.constitutive.elastic import elastic_matrix
 from macroc_tpu_torch.fem.element import b_matrix
 from macroc_tpu_torch.fem.kernels import assemble_stencil_soa
 from macroc_tpu_torch.ops import assembly as asm
@@ -26,6 +31,8 @@ from macroc_tpu_torch.ops.stencil_spmv import (
     stencil_matvec_v1,
 )
 from macroc_tpu_torch.problem import MacroProblem
+from macroc_tpu_torch.solve.gmres import gmres_solve
+from macroc_tpu_torch.solve.precond import jacobi_precond_soa
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.gpu
@@ -59,6 +66,72 @@ def test_k1_kernel_matches_plain(cuda, shape, dtype, tol):
     assert stencil_matvec.launches == before + 2
 
 
+NARROW = [(torch.bfloat16, torch.float32), (torch.bfloat16, torch.float64),
+          (torch.float16, torch.float32), (torch.float16, torch.float64),
+          (torch.float32, torch.float64)]
+
+
+@pytest.mark.parametrize("a_dtype,dtype", NARROW)
+@pytest.mark.parametrize("shape", [(33, 17, 45), (64, 64, 64)])
+def test_k1_narrow_operator_matches_plain(cuda, shape, a_dtype, dtype):
+    """K1 with the operator stored narrower than the vectors (-mg_dtype):
+    each coefficient widens exactly, so it agrees with the plain version
+    to the vector dtype's bound, as the same-type kernel does."""
+    tol = dict(TOLS)[dtype]
+    rng = np.random.default_rng(8)
+    A = torch.as_tensor(rng.normal(size=(27, 3, 3) + shape), device=cuda).to(a_dtype)
+    x = torch.as_tensor(rng.normal(size=(3,) + shape), dtype=dtype, device=cuda)
+    xh = torch.as_tensor(
+        rng.normal(size=(3,) + tuple(n + 2 for n in shape)), dtype=dtype, device=cuda
+    )
+    before = stencil_matvec.launches
+    y = stencil_matvec(A, x)
+    assert y.dtype == dtype
+    assert _rel(y, stencil_matvec_soa(A, x)) < tol
+    assert _rel(stencil_matvec(A, xh, halo=True), stencil_matvec_soa(A, xh, halo=True)) < tol
+    assert stencil_matvec.launches == before + 2
+
+
+def test_k1_refuses_other_dtype_pairs(cuda):
+    A = torch.zeros((27, 3, 3, 4, 4, 4), device=cuda)
+    for a, x in [(torch.bfloat16, torch.bfloat16), (torch.float64, torch.float32),
+                 (torch.bfloat16, torch.float16)]:
+        with pytest.raises(TypeError, match="no kernel for A"):
+            stencil_matvec(A.to(a), torch.zeros((3, 4, 4, 4), device=cuda, dtype=x))
+
+
+def test_gmres_on_gpu_matches_cpu(cuda):
+    """Jacobi-GMRES(10) on a BC-eliminated 9x3x9 circle stencil at float64,
+    through K1 on the card against the plain version on the CPU: the same
+    iteration count and reason, x to 1e-10."""
+    cfg = MacroConfig(nx=9, ny=3, nz=9, lx=10.0, ly=1.0, lz=10.0, bc_type=1,
+                      rad=2.0, dtype="float64")
+    grid = make_grid(cfg, 1)
+    shape = (grid.nx, grid.ny, grid.nz)
+    rng = np.random.default_rng(9)
+    C = elastic_matrix(MaterialParams())
+    ct = C * (1.0 + 0.5 * rng.random(tuple(n - 1 for n in shape) + (8, 1, 1)))
+    b = rng.normal(size=(3,) + shape)
+    out = {}
+    for dev in ("cpu", cuda):
+        bc = tbc.build_bc(grid, cfg, torch.float64, dev)
+        B = torch.as_tensor(b_matrix(grid.spacing), dtype=torch.float64, device=dev)
+        A = tbc.apply_bc_stencil_soa(
+            assemble_stencil_soa(torch.as_tensor(ct, device=dev), B, grid.wg, shape), bc
+        )
+        rhs = torch.as_tensor(b, device=dev).masked_fill(bc.mask.permute(3, 0, 1, 2), 0.0)
+        before = stencil_matvec.launches
+        r = gmres_solve(lambda v: stencil_matvec(A, v), rhs, jacobi_precond_soa(A),
+                        rtol=1e-10, restart=10)
+        out[str(dev)] = r
+        if dev != "cpu":
+            # one launch per Arnoldi step and one per cycle's true residual
+            assert stencil_matvec.launches - before == r.its + math.ceil(r.its / 10)
+    c, g = out["cpu"], out[str(cuda)]
+    assert g.its == c.its and g.reason == c.reason > 0 and c.its > 10
+    assert _rel(g.x.cpu(), c.x) < 1e-10
+
+
 @pytest.mark.parametrize("dtype,tol", TOLS)
 @pytest.mark.parametrize("ne", [(20, 9, 27), (32, 32, 32)])
 def test_k2_kernel_matches_plain(cuda, ne, dtype, tol):
@@ -89,8 +162,6 @@ def test_k1v1_kernel_matches_plain(cuda, shape, tile, dtype, tol):
 def test_microfe_homogenize_on_gpu_matches_cpu(cuda):
     """A two-phase micro_n=4 engine, 24 GPs with 3 driven past yield, fast
     path on: the batched micro solves on the card against the CPU."""
-    from macroc_tpu_torch import MaterialParams
-
     rng = np.random.default_rng(7)
     eps = rng.normal(size=(24, 6)) * 1e-4
     eps[::8] *= 600.0

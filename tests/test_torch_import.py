@@ -22,6 +22,9 @@ MODULES = [
     "macroc_tpu_torch.ops.assembly",
     "macroc_tpu_torch.ops.stencil_spmv",
     "macroc_tpu_torch.solve.mg",
+    "macroc_tpu_torch.solve.gmres",
+    "macroc_tpu_torch.utils.checkpoint",
+    "macroc_tpu_torch.utils.profiling",
 ]
 
 
