@@ -13,16 +13,16 @@ hand-written CUDA C++ kernel for Hopper (``sm_90a``):
   - K2, the stencil-assembly combine (``ops/assembly.py``).
 
 Module names mirror ``macroc_tpu`` so each counterpart is easy to find.  The
-package imports torch and numpy, never jax; it reuses the reference's
-jax-free host modules (``macroc_tpu.config``, ``macroc_tpu.grid``,
-``macroc_tpu.io``).  Every constructor takes an explicit ``device``; on a CPU
+package imports torch and numpy, never jax and nothing of ``macroc_tpu``:
+it keeps its own copies of the reference's host modules (``config``,
+``grid``, ``io``).  Every constructor takes an explicit ``device``; on a CPU
 tensor each kernel wrapper runs its plain PyTorch version, on a CUDA tensor
 it launches the kernel.
 """
 
 __version__ = "0.1.0"
 
-from macroc_tpu.config import MacroConfig, MaterialParams, parse_cli
-from macroc_tpu.grid import StructuredGrid3D
+from macroc_tpu_torch.config import MacroConfig, MaterialParams, parse_cli
+from macroc_tpu_torch.grid import StructuredGrid3D
 
 __all__ = ["MacroConfig", "MaterialParams", "parse_cli", "StructuredGrid3D"]

@@ -21,8 +21,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from macroc_tpu.config import BC_BENDING, BC_CIRCLE, MacroConfig
-from macroc_tpu.grid import StructuredGrid3D
+from macroc_tpu_torch.config import BC_BENDING, BC_CIRCLE, MacroConfig
+from macroc_tpu_torch.grid import StructuredGrid3D
 from macroc_tpu_torch.fem.kernels import DIAG_OFFSET, N_STENCIL, STENCIL_OFFSETS
 
 

@@ -1,6 +1,6 @@
 """Command-line entry point: ``python -m macroc_tpu_torch [petsc-style flags]``.
 
-Takes the same flags as ``python -m macroc_tpu`` (``macroc_tpu.config``).
+Takes the same flags as ``python -m macroc_tpu`` (``config.parse_cli``).
 ``MACROC_PLATFORM`` picks the device: ``cuda`` (the default; raises when no
 CUDA device is present) or ``cpu``, where every kernel runs its plain
 PyTorch version.  Flags whose code paths are not ported yet raise.
@@ -13,7 +13,7 @@ import sys
 
 import torch
 
-from macroc_tpu.config import MacroConfig, parse_cli
+from macroc_tpu_torch.config import MacroConfig, parse_cli
 from macroc_tpu_torch.driver import Simulation
 from macroc_tpu_torch.utils.runtime import setup_runtime
 

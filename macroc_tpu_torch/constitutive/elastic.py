@@ -9,7 +9,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from macroc_tpu.config import MaterialParams
+from macroc_tpu_torch.config import MaterialParams
 from macroc_tpu_torch.constitutive.base import HomogenizeResult
 
 

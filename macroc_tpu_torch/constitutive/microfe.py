@@ -41,7 +41,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from macroc_tpu.config import (
+from macroc_tpu_torch.config import (
     MIC_CILI_FIB_XZ,
     MIC_CILI_FIB_Z,
     MIC_HOMOGENEOUS,

@@ -4,7 +4,7 @@
 Orchestrates MacroProblem.time_step over ``ts`` steps, producing the
 reference's stdout narrative (banner, per-Newton |RES|, per-solve KSP
 lines), info.dat and gauss_evolution.dat rows and optional PVTU output,
-all through the reused ``macroc_tpu.io`` writers.  ``-log_phases`` prints a
+all through the ``macroc_tpu_torch.io`` writers.  ``-log_phases`` prints a
 table of device-synchronised phase times at the end.  ``-checkpoint_freq``
 saves (u, state) every that many steps and ``-resume`` continues from the
 newest checkpoint in ``-checkpoint_dir`` (``utils/checkpoint.py``, the JAX
@@ -21,8 +21,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from macroc_tpu.config import BC_BENDING, BC_CIRCLE, MacroConfig
-from macroc_tpu.io import GaussEvolutionWriter, InfoWriter, write_pvtu
+from macroc_tpu_torch.config import BC_BENDING, BC_CIRCLE, MacroConfig
+from macroc_tpu_torch.io import GaussEvolutionWriter, InfoWriter, write_pvtu
 from macroc_tpu_torch.fem.kernels import compute_strains
 from macroc_tpu_torch.forces import per_rank_nonlinear_counts_device
 from macroc_tpu_torch.problem import MacroProblem

@@ -12,8 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from macroc_tpu.config import BC_BENDING, BC_CIRCLE, MacroConfig
-from macroc_tpu.grid import StructuredGrid3D
+from macroc_tpu_torch.config import BC_BENDING, BC_CIRCLE, MacroConfig
+from macroc_tpu_torch.grid import StructuredGrid3D
 
 
 def circle_element_mask(grid: StructuredGrid3D, rad: float) -> np.ndarray:

@@ -33,8 +33,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from macroc_tpu.config import MacroConfig
-from macroc_tpu.grid import StructuredGrid3D, make_grid
+from macroc_tpu_torch.config import MacroConfig
+from macroc_tpu_torch.grid import StructuredGrid3D, make_grid
 from macroc_tpu_torch import bc as bc_mod
 from macroc_tpu_torch.constitutive import J2State, make_engine
 from macroc_tpu_torch.constitutive.microfe import MicroState

@@ -17,12 +17,12 @@ import numpy as np
 import pytest
 import torch
 
-from macroc_tpu.grid import make_grid
 from macroc_tpu_torch import MacroConfig, MaterialParams
 from macroc_tpu_torch import bc as tbc
 from macroc_tpu_torch.constitutive.elastic import elastic_matrix
 from macroc_tpu_torch.fem.element import b_matrix
 from macroc_tpu_torch.fem.kernels import assemble_stencil_soa
+from macroc_tpu_torch.grid import make_grid
 from macroc_tpu_torch.ops import assembly as asm
 from macroc_tpu_torch.constitutive.microfe import MicroFEEngine
 from macroc_tpu_torch.ops.stencil_spmv import (

@@ -21,6 +21,7 @@ from macroc_tpu.fem import kernels as jk
 from macroc_tpu.grid import make_grid
 from macroc_tpu.problem import MacroProblem as JaxProblem, resolve_solver_plan
 from macroc_tpu_torch import bc as tbc
+from macroc_tpu_torch.config import MacroConfig as PortConfig
 from macroc_tpu_torch.constitutive.elastic import elastic_matrix
 from macroc_tpu_torch.fem import kernels as tk
 from macroc_tpu_torch.problem import MacroProblem, resolve_solver_plan_torch
@@ -142,7 +143,7 @@ def test_matfree_mg_is_the_identity():
     run, and the same iterates as pc_type none."""
     cfg = MacroConfig(**BASE, operator="matfree", pc_type="mg")
     u_mg, d_mg = _run_port(cfg, 2)
-    u_none, d_none = _run_port(MacroConfig(**BASE, operator="matfree", pc_type="none"), 2)
+    u_none, d_none = _run_port(PortConfig(**BASE, operator="matfree", pc_type="none"), 2)
     _, d_j = _run_jax(cfg, 2)
     its = [_ksp_its(d) for d in d_mg]
     assert its == [_ksp_its(d) for d in d_none] == [_ksp_its(d) for d in d_j]

@@ -31,6 +31,7 @@ from macroc_tpu.problem import MacroProblem as JaxProblem
 from macroc_tpu.solve import mg as jmg
 from macroc_tpu_torch import problem as tproblem
 from macroc_tpu_torch.ops.stencil_spmv import stencil_matvec, stencil_matvec_soa
+from macroc_tpu_torch.config import MacroConfig as PortConfig
 from macroc_tpu_torch.problem import MacroProblem
 from macroc_tpu_torch.solve import mg as tmg
 from test_torch_modules import _operators, _rel
@@ -138,7 +139,7 @@ def test_bf16_mg_step_matches_jax(monkeypatch):
 def test_mg_dtype_names():
     for name, want in [("", torch.float32), ("float32", torch.float32),
                        ("bfloat16", torch.bfloat16), ("float16", torch.float16)]:
-        cfg = MacroConfig(nx=5, ny=3, nz=3, dtype="float32", mg_dtype=name)
+        cfg = PortConfig(nx=5, ny=3, nz=3, dtype="float32", mg_dtype=name)
         assert MacroProblem(cfg, "cpu")._mg_dtype() == want
     with pytest.raises(ValueError, match="mg_dtype"):
-        MacroProblem(MacroConfig(nx=5, ny=3, nz=3, mg_dtype="int8"), "cpu")._mg_dtype()
+        MacroProblem(PortConfig(nx=5, ny=3, nz=3, mg_dtype="int8"), "cpu")._mg_dtype()
