@@ -93,7 +93,13 @@ def b_matrix(
     (xx, yy, zz, xy, xz, yz) with engineering shears — matches the row
     layout of calc_B (assembly.c:234-253).
     """
-    dsh = shape_derivatives(spacing)
+    return b_from_dsh(shape_derivatives(spacing))
+
+
+def b_from_dsh(dsh: np.ndarray) -> np.ndarray:
+    """B (NGP, NVOI, NPE, DIM) from shape derivatives dsh (NGP, NPE, DIM):
+    each (node, dim) column has three nonzero Voigt rows, each holding one
+    component of dsh (the pattern kernel K2 contracts with)."""
     B = np.zeros((NGP, NVOI, NPE, DIM), dtype=np.float64)
     B[:, 0, :, 0] = dsh[:, :, 0]
     B[:, 1, :, 1] = dsh[:, :, 1]

@@ -24,7 +24,8 @@ from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
-SOURCES = ("stencil_spmv.cu", "stencil_spmv_v1.cu", "assembly_combine.cu")
+SOURCES = ("stencil_spmv.cu", "stencil_spmv_v1.cu", "assembly_fused.cu",
+           "assembly_combine.cu")
 BUILD_ROOT = PKG_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -33,6 +34,8 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_D = ctypes.c_double
 
 # C entry points: name -> argument types (all return cudaError_t as int)
 _SIGNATURES = {
@@ -45,6 +48,9 @@ _SIGNATURES = {
     # (A, x, y, nx, ny, nz, TX, TY, TZ, stream)
     "macroc_stencil_spmv_v1_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "macroc_stencil_spmv_v1_f64": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # (ctan, host dsh, A, wg, nx, ny, nz, sx, sy, xchunk, stream)
+    "macroc_assembly_fused_f32": (_P, _P, _P, _D, _I, _I, _I, _L, _L, _I, _P),
+    "macroc_assembly_fused_f64": (_P, _P, _P, _D, _I, _I, _I, _L, _L, _I, _P),
     # (Ke, A, nx, ny, nz, stream)
     "macroc_assembly_combine_f32": (_P, _P, _I, _I, _I, _P),
     "macroc_assembly_combine_f64": (_P, _P, _I, _I, _I, _P),

@@ -1,16 +1,23 @@
-"""Stencil assembly in two stages: kernel K2 and its plain versions
-(replaces ``macroc_tpu/ops/assembly_pallas.py``).
+"""Stencil assembly: kernel K2 and its plain version (replaces
+``macroc_tpu/ops/assembly_pallas.py::assemble_stencil_soa_mxu``).
+
+On a CUDA tensor ``assemble_stencil_soa_kernel`` launches K2
+(``csrc/assembly_fused.cu``): one kernel from per-GP tangents to the SoA
+stencil that contracts B's sparsity pattern per GP and keeps each element's
+stiffness Ke on the chip.  On a CPU tensor it runs the plain version in two
+stages:
 
   1. per-element stiffness as ONE plain matrix product: each element's
      vec(Ke)[(a,d,b,e)] = M[(adbe), (gvw)] @ vec(C_e), M = B^T x B * wg
      constant (576 x 288).  ``torch.matmul(M, C^T)`` writes Ke
-     CHANNEL-major, (576, nex, ney, nez), so that the combine's reads of
-     neighbouring elements in z are adjacent in memory;
+     CHANNEL-major, (576, nex, ney, nez);
   2. the node-gather COMBINE: node p sums, over its 8 adjacent elements a,
      the 72 channels (d,b,e) of that element's Ke into stencil entry
-     K = o(a,b)*9 + d*3 + e of A (27,3,3,nx,ny,nz).  Kernel K2
-     (``csrc/assembly_combine.cu``) on a CUDA tensor, ``combine_plain`` on
-     a CPU tensor.
+     K = o(a,b)*9 + d*3 + e of A (27,3,3,nx,ny,nz) (``combine_plain``).
+
+``combine_cuda`` is the earlier two-stage kernel's combine
+(``csrc/assembly_combine.cu``), off the main path; ``chip_smoke.py`` times
+it beside K2.
 
 Channel orders:
   Ke : k = a*72 + (d*8 + b)*3 + e
@@ -25,7 +32,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from macroc_tpu_torch.fem.element import DIM, NGP, NODE_OFFSETS, NPE, NVOI
+from macroc_tpu_torch.fem.element import DIM, NGP, NODE_OFFSETS, NPE, NVOI, b_from_dsh
 from macroc_tpu_torch.fem.kernels import N_STENCIL, offset_index
 
 N_KE = NPE * DIM * NPE * DIM  # 576 element-stiffness channels
@@ -125,26 +132,104 @@ def combine_cuda(Ke: torch.Tensor, grid_shape: Tuple[int, int, int]) -> torch.Te
     return A
 
 
+def assemble_stencil_soa_plain(
+    ctan: torch.Tensor, B: torch.Tensor, wg: float,
+    grid_shape: Tuple[int, int, int],
+) -> torch.Tensor:
+    """Plain PyTorch K2: A (243, nx, ny, nz) through stage 1 and
+    ``combine_plain``."""
+    return combine_plain(element_stiffness_cm(ctan, B, wg), grid_shape)
+
+
+def b_dsh(B: torch.Tensor) -> np.ndarray:
+    """The (8, 8, 3) shape derivatives that B (8, 6, 8, 3) holds; raises
+    ValueError unless B has exactly ``b_matrix``'s pattern (K2 contracts
+    with that pattern, not with B)."""
+    if tuple(B.shape) != (NGP, NVOI, NPE, DIM):
+        raise ValueError(f"B must be (8, 6, 8, 3), got {tuple(B.shape)}")
+    Bh = B.detach().to("cpu", torch.float64).numpy()
+    dsh = np.stack([Bh[:, c, :, c] for c in range(DIM)], axis=-1)
+    if not np.array_equal(Bh, b_from_dsh(dsh)):
+        raise ValueError("B does not have b_matrix's sparsity pattern: K2 "
+                         "takes only strain-displacement tables of that form")
+    return dsh
+
+
+# K2's node column (TY, TZ) per type (csrc/assembly_fused.cu, Tile<T>)
+FUSED_TILE = {torch.float32: (8, 8), torch.float64: (4, 8)}
+
+
+def fused_xchunk(grid_shape: Tuple[int, int, int], dtype: torch.dtype, n_sm: int) -> int:
+    """Node layers per block along x: the grid's node columns are cut into
+    x chunks until there are about 8 blocks per SM (one block runs per SM;
+    each chunk recomputes one element layer)."""
+    nx, ny, nz = grid_shape
+    ty, tz = FUSED_TILE[dtype]
+    columns = -(-ny // ty) * -(-nz // tz)
+    chunks = min(nx, max(1, -(-8 * n_sm // columns)))
+    return -(-nx // chunks)
+
+
+def check_fused_layout(ctan: torch.Tensor) -> None:
+    """Raise ValueError unless K2 can read ctan in place: each element's
+    288 values contiguous, elements at stride 288 along z (a contiguous
+    tensor or a slice of a node-shaped one: the Newton step hands over the
+    latter), 16-byte aligned.  A size-1 axis is never stepped along."""
+    st = ctan.stride()
+    if st[3:] != (36, 6, 1) or (ctan.shape[2] > 1 and st[2] != 288):
+        raise ValueError(f"K2 needs each element's 8x6x6 tangents contiguous and "
+                         f"elements at stride 288 along z, got strides {st}")
+    if ctan.data_ptr() % 16:
+        raise ValueError("K2 needs ctan aligned to 16 bytes")
+
+
+def _fused_cuda(ctan: torch.Tensor, dsh: np.ndarray, wg: float,
+                grid_shape: Tuple[int, int, int]) -> torch.Tensor:
+    """Launch K2 on a CUDA ctan; returns A (243, nx, ny, nz)."""
+    from macroc_tpu_torch.ops import _build
+
+    nx, ny, nz = grid_shape
+    if ctan.dtype not in _FUSED_ENTRY:
+        raise TypeError(f"K2 takes float32 or float64, got {ctan.dtype}")
+    if min(grid_shape) < 2:
+        raise ValueError(f"K2 needs at least 2 nodes per axis, got {grid_shape}")
+    check_fused_layout(ctan)
+    st = ctan.stride()
+    lib = _build.load()
+    A = torch.empty((N_A, nx, ny, nz), dtype=ctan.dtype, device=ctan.device)
+    host = np.ascontiguousarray(dsh, dtype=np.float32 if ctan.dtype == torch.float32
+                                else np.float64)
+    with torch.cuda.device(ctan.device):
+        n_sm = torch.cuda.get_device_properties(ctan.device).multi_processor_count
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, _FUSED_ENTRY[ctan.dtype])(
+            ctan.data_ptr(), host.ctypes.data, A.data_ptr(), float(wg), nx, ny, nz,
+            st[0], st[1], fused_xchunk(grid_shape, ctan.dtype, n_sm), stream,
+        )
+    _build.check(err, "fused assembly (K2)")
+    return A
+
+
 def assemble_stencil_soa_kernel(
     ctan: torch.Tensor, B: torch.Tensor, wg: float,
     grid_shape: Tuple[int, int, int],
 ) -> torch.Tensor:
     """Stencil assembly A_soa (27,3,3,nx,ny,nz) from per-GP tangents ctan
-    (nx-1,ny-1,nz-1,8,6,6): stage 1 as a matrix product, stage 2 through
-    kernel K2 (CUDA tensors) or ``combine_plain`` (CPU tensors).  Counts
-    kernel launches in ``assemble_stencil_soa_kernel.launches``."""
+    (nx-1,ny-1,nz-1,8,6,6): kernel K2 on a CUDA tensor, the plain version
+    on a CPU tensor.  B must have ``b_matrix``'s pattern (ValueError).
+    Counts kernel launches in ``assemble_stencil_soa_kernel.launches``."""
     nx, ny, nz = grid_shape
     if tuple(ctan.shape) != (nx - 1, ny - 1, nz - 1, NGP, NVOI, NVOI):
         raise ValueError(
             f"ctan must be (nx-1,ny-1,nz-1,8,6,6) for grid {grid_shape}, "
             f"got {tuple(ctan.shape)}"
         )
-    Ke = element_stiffness_cm(ctan, B, wg)
-    if Ke.is_cuda:
-        A = combine_cuda(Ke, grid_shape)
+    dsh = b_dsh(B)
+    if ctan.is_cuda:
+        A = _fused_cuda(ctan, dsh, wg, grid_shape)
         assemble_stencil_soa_kernel.launches += 1
     else:
-        A = combine_plain(Ke, grid_shape)
+        A = assemble_stencil_soa_plain(ctan, B, wg, grid_shape)
     return A.reshape(N_STENCIL, DIM, DIM, nx, ny, nz)
 
 
@@ -153,4 +238,8 @@ _map_loaded = set()  # device indices whose constant bank holds the map
 _ENTRY = {
     torch.float32: "macroc_assembly_combine_f32",
     torch.float64: "macroc_assembly_combine_f64",
+}
+_FUSED_ENTRY = {
+    torch.float32: "macroc_assembly_fused_f32",
+    torch.float64: "macroc_assembly_fused_f64",
 }
