@@ -14,16 +14,20 @@ non-zero without the result line):
                operator forms (bf16 and f16 A with f32 and f64 x, f32 A
                with f64 x) at the same shapes; then f32, the bf16-operator
                form and the plain version timed at the 128^3 fine-level
-               shape of the main path;
+               shape of the main path, beside the library yardstick: the
+               same operator as one CSR matrix (int32 indices,
+               out-of-grid neighbours dropped) through torch.sparse;
   3. K1v1    — the shared-memory-tile SpMV kernel vs the plain version at
                the same shapes and types with two tiles, one ragged; then
                the SpMV variant sweep (the JAX bench's bench_spmv): K1v1,
                K1 and the plain version timed on the 128^3 assembled
                elastic stencil;
-  4. K2      — assembly combine kernel vs its plain versions at (32,32,32)
-               and (20,9,27) elements and at the element shapes of the
-               same path levels, f32 and f64; then timed at 127^3
-               elements;
+  4. K2      — the fused assembly kernel vs its plain version and the
+               slab form at (32,32,32) and (20,9,27) elements and at the
+               element shapes of the same path levels, f32 and f64, two
+               launches bitwise equal; then timed at 127^3 elements beside
+               the earlier two-stage path (stage-1 matmul + combine
+               kernel), with each path's peak memory;
   5. goldens — the four J2 CG goldens, the GMRES golden and the FE² golden
                (tests/goldens/*.json) at f64 through the kernels;
   6. main    — ``macroc_tpu_torch.cli`` on the 128^3 J2 + MG bending case,
@@ -170,6 +174,63 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+F32_TFLOPS = 67.0  # the H100 SXM's published FP32 rate outside the tensor cores
+F64_TFLOPS = 34.0  # its published FP64 rate outside the tensor cores
+
+
+def bound(nbytes, flops, dtype=torch.float32):
+    """(bound_ms, bound_by): the larger of moving ``nbytes`` at the HBM rate
+    and doing ``flops`` at the card's peak for the type."""
+    mem_ms = nbytes / (HBM_GBS * 1e6)
+    op_ms = flops / ((F32_TFLOPS if dtype == torch.float32 else F64_TFLOPS) * 1e9)
+    return (mem_ms, "bytes") if mem_ms >= op_ms else (op_ms, "operations")
+
+
+def csr_from_soa(A):
+    """The SoA stencil A (27,3,3,nx,ny,nz) as one CSR matrix over node-major
+    dofs (row p*3+d, column q*3+e), out-of-grid neighbours dropped, int32
+    indices: the input of the library SpMV that K1 is held against."""
+    from macroc_tpu_torch.fem.kernels import STENCIL_OFFSETS
+
+    nx, ny, nz = A.shape[-3:]
+    n, dev = nx * ny * nz, A.device
+    offs = torch.as_tensor(STENCIL_OFFSETS, device=dev)
+    idx = [torch.arange(m, device=dev) for m in (nx, ny, nz)]
+    valid = torch.ones((nx, ny, nz, 27), dtype=torch.bool, device=dev)
+    for ax in range(3):
+        shift = idx[ax].view([-1 if i == ax else 1 for i in range(3)] + [1]) + offs[:, ax]
+        valid &= (shift >= 0) & (shift < (nx, ny, nz)[ax])
+    # row (p, d) holds (o, e) in column order: o runs x slowest like q
+    keep = valid[:, :, :, None, :, None].expand(nx, ny, nz, 3, 27, 3).reshape(-1)
+    values = A.permute(3, 4, 5, 1, 0, 2).reshape(-1)[keep]
+    lin = (offs[:, 0] * ny * nz + offs[:, 1] * nz + offs[:, 2]).to(torch.int32)
+    q = torch.arange(n, device=dev, dtype=torch.int32).view(n, 1, 1, 1) + lin.view(1, 1, 27, 1)
+    cols = (q * 3 + torch.arange(3, device=dev, dtype=torch.int32).view(1, 1, 1, 3))
+    cols = cols.expand(n, 3, 27, 3).reshape(-1)[keep]
+    counts = (valid.reshape(n, 27).sum(1, dtype=torch.int32) * 3).repeat_interleave(3)
+    crow = torch.zeros(3 * n + 1, dtype=torch.int32, device=dev)
+    crow[1:] = torch.cumsum(counts, 0, dtype=torch.int32)
+    return torch.sparse_csr_tensor(crow, cols, values, size=(3 * n, 3 * n),
+                                   check_invariants=False)
+
+
+def library_spmv(tag, A, x, y_kernel):
+    """Time one cuSPARSE CSR SpMV (``torch.mv(A_csr, x)``) on the same operator and
+    vector as K1, held against the kernel's y; returns ms."""
+    A_csr = csr_from_soa(A)
+    xv = x.permute(1, 2, 3, 0).reshape(-1)
+    y = torch.mv(A_csr, xv).view(*x.shape[1:], 3).permute(3, 0, 1, 2)
+    err = rel_err(y, y_kernel)
+    check(err < TOLS[torch.float32], f"{tag}: the CSR SpMV disagrees with the kernel")
+    ms = time_ms(lambda: torch.mv(A_csr, xv), 20)
+    nnz = A_csr.values().numel()
+    log(f"[{tag}] library CSR SpMV (torch.sparse, cuSPARSE, int32 indices): {ms:.4f} ms, "
+        f"nnz {nnz}, {(nnz * 8 + (3 * x[0].numel() + 1) * 4 + 2 * x.numel() * 4) / 1e9:.3f} GB; "
+        f"max rel dev from the kernel {err:.3e}")
+    del A_csr
+    return ms
+
+
 def phase_build():
     from macroc_tpu_torch.ops import _build
 
@@ -253,7 +314,10 @@ def phase_k1(dev, path_shapes):
     log(f"[K1] 128^3 f32: max abs err {float((y - y_ref).abs().max()):.3e}, rel "
         f"{err:.3e}; kernel {ms:.4f} ms ({nnz / ms / 1e6:.2f} Gnnz/s, "
         f"{(243 + 6) * 4 * math.prod(shape) / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms")
-    k1 = dict(max_abs_err=float((y - y_ref).abs().max()), ms=ms, plain_ms=plain_ms)
+    nodes = math.prod(shape)
+    k1 = dict(max_abs_err=float((y - y_ref).abs().max()), ms=ms, plain_ms=plain_ms,
+              library_ms=library_spmv("K1", A, x, y))
+    k1["bound_ms"], k1["bound_by"] = bound((243 + 6) * 4 * nodes, 2 * 243 * nodes)
     # the bf16-operator form at 128^3 with f32 x (a bf16 MG fine level):
     # the same bf16 values as f32 through K1, and the plain version
     Ab = A.to(torch.bfloat16)
@@ -268,7 +332,6 @@ def phase_k1(dev, path_shapes):
     t = {"bf16 A": time_ms(lambda: stencil_matvec(Ab, x), 50),
          "f32 A": time_ms(lambda: stencil_matvec(Aw, x), 50),
          "plain": time_ms(lambda: stencil_matvec_soa(Ab, x), 5)}
-    nodes = math.prod(shape)
     byts = {"bf16 A": 243 * 2 + 6 * 4, "f32 A": (243 + 6) * 4, "plain": 243 * 2 + 6 * 4}
     log("[K1 narrow] 128^3 bf16 A, f32 x: max abs err "
         f"{float((y - y_ref).abs().max()):.3e}, rel {err:.3e}; " + ", ".join(
@@ -276,7 +339,10 @@ def phase_k1(dev, path_shapes):
             f"{byts[k] * nodes / v / 1e6 / HBM_GBS:.3f} of {HBM_GBS / 1000:g} TB/s)"
             for k, v in t.items()))
     narrow = dict(max_abs_err=float((y - y_ref).abs().max()), ms=t["bf16 A"],
-                  plain_ms=t["plain"], f32_operator_ms=t["f32 A"])
+                  plain_ms=t["plain"], f32_operator_ms=t["f32 A"], library_ms=None,
+                  library_note="no PyTorch call multiplies a bf16 matrix into an f32 "
+                               "vector accumulating in f32")
+    narrow["bound_ms"], narrow["bound_by"] = bound(byts["bf16 A"] * nodes, 2 * 243 * nodes)
     return k1, narrow
 
 
@@ -337,52 +403,93 @@ def phase_k1v1(dev):
                 k1_ms=ms["K1"]), launches
 
 
+def peak_gib(fn):
+    """Device memory one call of ``fn`` allocates above what was held
+    before it, at its peak (GiB)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+K2_TIMED = (127, 127, 127)  # the 128^3 main path's fine-level elements
+
+
 def phase_k2(dev, path_shapes):
+    """The fused K2 against its plain version (stage 1 + combine_plain) and
+    the slab form at every element shape the driven paths give it, f32 and
+    f64, with two launches bitwise equal; then, at the 128^3 main path's
+    127^3 elements in f32, timed beside the earlier two-stage path (stage-1
+    matmul + the combine kernel) and the plain version."""
     from macroc_tpu_torch.fem.element import b_matrix
     from macroc_tpu_torch.fem.kernels import assemble_stencil_soa
     from macroc_tpu_torch.ops import assembly as asm
 
     rng = np.random.default_rng(2)
-    # element shapes; the 127^3 fine level is checked (f32) and timed below
-    elems = [(32, 32, 32), (20, 9, 27)] + [
-        tuple(n - 1 for n in s) for s in path_shapes if s != (128, 128, 128)]
+    # (20,9,27) elements: no tile divides its node grid on y or z
+    elems = [(32, 32, 32), (20, 9, 27)] + [tuple(n - 1 for n in s) for s in path_shapes]
     for ne in elems:
         shape = tuple(n + 1 for n in ne)
+        errs = []
         for dtype, tol in TOLS.items():
-            B = torch.as_tensor(b_matrix((1.0, 1.0, 1.0)), dtype=dtype, device=dev)
+            if ne == K2_TIMED and dtype == torch.float32:
+                continue  # checked and timed below
+            B = torch.as_tensor(b_matrix((1.0, 1.1, 0.9)), dtype=dtype, device=dev)
             ct = randn(rng, ne + (8, 6, 6), dtype, dev)
-            Ke = asm.element_stiffness_cm(ct, B, 0.1)
-            same = torch.equal(asm.combine_cuda(Ke, shape), asm.combine_plain(Ke, shape))
-            err = rel_err(asm.assemble_stencil_soa_kernel(ct, B, 0.1, shape),
-                          assemble_stencil_soa(ct, B, 0.1, shape))
-            log(f"[K2] {ne} elements {str(dtype)[6:]}: combine bitwise equal to plain "
-                f"{same}; assembly max rel err vs slab {err:.3e} (bound {tol:g})")
-            check(same and err < tol, f"K2 disagrees with its plain versions at {ne} {dtype}")
-    # the 128^3 main path: 127^3 elements, f32
-    ne, shape = (127, 127, 127), (128, 128, 128)
+            A = asm.assemble_stencil_soa_kernel(ct, B, 0.1, shape)
+            same = torch.equal(asm.assemble_stencil_soa_kernel(ct, B, 0.1, shape), A)
+            err = rel_err(A.reshape(243, *shape), asm.assemble_stencil_soa_plain(ct, B, 0.1, shape))
+            err_slab = rel_err(A, assemble_stencil_soa(ct, B, 0.1, shape))
+            errs.append(f"{str(dtype)[6:]} {err:.3e} (slab {err_slab:.3e}, repeat bitwise {same})")
+            check(same and err < tol and err_slab < tol,
+                  f"K2 disagrees with its plain version at {ne} {dtype}: {err:.3e}, slab "
+                  f"{err_slab:.3e}, repeat bitwise {same}")
+            del A, ct
+        log(f"[K2] {ne} elements: max rel err vs plain " + ", ".join(errs)
+            + f" (bounds {TOLS[torch.float32]:g}, {TOLS[torch.float64]:g})")
+    ne = K2_TIMED
+    shape = tuple(n + 1 for n in ne)
     B = torch.as_tensor(b_matrix((1.0, 1.0, 1.0)), dtype=torch.float32, device=dev)
     ct = randn(rng, ne + (8, 6, 6), torch.float32, dev)
+    A = asm.assemble_stencil_soa_kernel(ct, B, 0.1, shape).reshape(243, *shape)
+    check(torch.equal(asm.assemble_stencil_soa_kernel(ct, B, 0.1, shape).reshape(243, *shape), A),
+          "K2 launches differ at 127^3")
     Ke = asm.element_stiffness_cm(ct, B, 0.1)
-    A = asm.combine_cuda(Ke, shape)
-    A_ref = asm.combine_plain(Ke, shape)
-    abs_err = float((A - A_ref).abs().max())
-    check(abs_err == 0.0, "K2 combine differs from its plain version at 128^3")
-    del A, A_ref
-    ms = time_ms(lambda: asm.combine_cuda(Ke, shape), 20)
-    plain_ms = time_ms(lambda: asm.combine_plain(Ke, shape), 3)
+    A_two = asm.combine_cuda(Ke, shape)
+    check(torch.equal(A_two, asm.combine_plain(Ke, shape)),
+          "the two-stage combine differs from its plain version at 127^3")
     del Ke
-    stage1_ms = time_ms(lambda: asm.element_stiffness_cm(ct, B, 0.1), 5)
-    full_ms = time_ms(lambda: asm.assemble_stencil_soa_kernel(ct, B, 0.1, shape), 5)
-    slab_ms = time_ms(lambda: assemble_stencil_soa(ct, B, 0.1, shape), 2)
-    err = rel_err(asm.assemble_stencil_soa_kernel(ct, B, 0.1, shape),
-                  assemble_stencil_soa(ct, B, 0.1, shape))
-    check(err < TOLS[torch.float32], "K2 assembly disagrees with the slab form at 128^3")
-    bytes_ = (576 * math.prod(ne) + 243 * math.prod(shape)) * 4
-    log(f"[K2] 127^3 elements f32: combine max abs err {abs_err:.3e}; combine kernel "
-        f"{ms:.4f} ms ({bytes_ / ms / 1e6:.1f} GB/s), plain combine {plain_ms:.4f} ms; "
-        f"stage-1 matmul {stage1_ms:.4f} ms; whole assembly {full_ms:.4f} ms vs slab "
-        f"{slab_ms:.4f} ms (max rel err {err:.3e})")
-    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+    abs_err = float((A - A_two).abs().max())
+    err = abs_err / float(A_two.abs().max())
+    check(err < TOLS[torch.float32], f"K2 disagrees with its plain version at 127^3: {err:.3e}")
+    err_slab = rel_err(A, assemble_stencil_soa(ct, B, 0.1, shape).reshape(243, *shape))
+    check(err_slab < TOLS[torch.float32], "K2 disagrees with the slab form at 127^3")
+    del A, A_two
+    two_stage = lambda: asm.combine_cuda(asm.element_stiffness_cm(ct, B, 0.1), shape)
+    t = {"fused": time_ms(lambda: asm.assemble_stencil_soa_kernel(ct, B, 0.1, shape), 20),
+         "stage-1 matmul": time_ms(lambda: asm.element_stiffness_cm(ct, B, 0.1), 5),
+         "stage 1 + combine kernel": time_ms(two_stage, 5),
+         "plain": time_ms(lambda: asm.assemble_stencil_soa_plain(ct, B, 0.1, shape), 3)}
+    peak = {"fused": peak_gib(lambda: asm.assemble_stencil_soa_kernel(ct, B, 0.1, shape)),
+            "two-stage": peak_gib(two_stage)}
+    nbytes = (288 * math.prod(ne) + 243 * math.prod(shape)) * 4
+    flops = 2 * 17280 * math.prod(ne)
+    bound_ms, bound_by = bound(nbytes, flops)
+    log(f"[K2] {ne} elements f32 (the 128^3 main path's fine level): fused vs plain max abs err {abs_err:.3e}, rel {err:.3e} "
+        f"(slab {err_slab:.3e}); bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e9:.3f} GB, "
+        f"{flops / 1e9:.1f} GFLOP); " + ", ".join(
+            f"{k} {v:.4f} ms ({nbytes / v / 1e6:.1f} GB/s, {bound_ms / v:.3f} of the bound)"
+            for k, v in t.items())
+        + f"; peak device memory of one call: fused {peak['fused']:.3f} GiB, two-stage "
+        f"{peak['two-stage']:.3f} GiB")
+    return dict(max_abs_err=abs_err, ms=t["fused"], plain_ms=t["plain"], bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None,
+                library_note="no single PyTorch call assembles a stencil from tangents",
+                stage1_ms=t["stage-1 matmul"], two_stage_ms=t["stage 1 + combine kernel"],
+                peak_gib=peak["fused"], two_stage_peak_gib=peak["two-stage"])
 
 
 def golden_configs():
@@ -773,15 +880,19 @@ def main():
              replaces="macroc_tpu/ops/stencil_pallas.py:223",
              launches=got["main"]["K1"], launches_by_path=by_path("K1"),
              **k1),
-        dict(name="assembly_combine (K2)", route="cuda",
-             source="macroc_tpu_torch/csrc/assembly_combine.cu",
-             replaces="macroc_tpu/ops/assembly_pallas.py:80",
+        dict(name="assembly_fused (K2)", route="cuda",
+             source="macroc_tpu_torch/csrc/assembly_fused.cu",
+             replaces="macroc_tpu/ops/assembly_pallas.py:165",
              launches=got["main"]["K2"], launches_by_path=by_path("K2"),
              **got["k2"]),
+        # K1v1 runs on the same 128^3 operator shape as K1: its bound, and
+        # the CSR SpMV of the k1 phase (same shape and sparsity, the time
+        # does not depend on the values) as its library yardstick
         dict(name="stencil_spmv_v1 (K1v1)", route="cuda",
              source="macroc_tpu_torch/csrc/stencil_spmv_v1.cu",
              replaces="macroc_tpu/ops/stencil_pallas.py:79",
-             launches=v1_launches, **k1v1),
+             launches=v1_launches, bound_ms=k1["bound_ms"], bound_by=k1["bound_by"],
+             library_ms=k1["library_ms"], **k1v1),
         # K1's bf16-operator entry (the TPU kernel's narrow-A use,
         # stencil_pallas.py:257-265); launches: the 128^3 bf16 MG run's
         dict(name="stencil_spmv bf16 operator (K1 narrow form)", route="cuda",

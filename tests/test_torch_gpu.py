@@ -6,8 +6,8 @@ device.  The file imports no jax, so it runs where jax is not installed:
 
 Tolerances (max abs difference over max abs value): 1e-5 in float32 and
 1e-12 in float64 — the kernels sum in another order than the plain
-versions; the K2 combine adds in the plain version's order, so it is held
-bitwise.  The micro-FE homogenize on the card is held against the CPU at
+versions; the earlier two-stage K2's combine adds in the plain version's
+order, so it is held bitwise.  The micro-FE homogenize on the card is held against the CPU at
 float64 to 1e-9: its micro CG iterates carry the roundoff of another
 summation order, stopped at the 1e-8 CG tolerance."""
 
@@ -133,18 +133,30 @@ def test_gmres_on_gpu_matches_cpu(cuda):
 
 
 @pytest.mark.parametrize("dtype,tol", TOLS)
-@pytest.mark.parametrize("ne", [(20, 9, 27), (32, 32, 32)])
+@pytest.mark.parametrize("ne", [(20, 9, 27), (32, 32, 32), (9, 2, 9)])
 def test_k2_kernel_matches_plain(cuda, ne, dtype, tol):
+    """The fused K2 against its plain version (stage 1 + combine_plain) and
+    the slab form, on a contiguous ctan and on a slice of a node-shaped
+    field (the Newton step's layout); two launches are bitwise equal."""
     rng = np.random.default_rng(5)
     shape = tuple(n + 1 for n in ne)
-    B = torch.as_tensor(b_matrix((1.0, 1.0, 1.0)), dtype=dtype, device=cuda)
+    B = torch.as_tensor(b_matrix((1.0, 1.1, 0.9)), dtype=dtype, device=cuda)
     ct = torch.as_tensor(rng.normal(size=ne + (8, 6, 6)), dtype=dtype, device=cuda)
     Ke = asm.element_stiffness_cm(ct, B, 0.1)
     assert torch.equal(asm.combine_cuda(Ke, shape), asm.combine_plain(Ke, shape))
+    del Ke
+    plain = asm.assemble_stencil_soa_plain(ct, B, 0.1, shape).reshape(27, 3, 3, *shape)
     before = asm.assemble_stencil_soa_kernel.launches
     A = asm.assemble_stencil_soa_kernel(ct, B, 0.1, shape)
     assert asm.assemble_stencil_soa_kernel.launches == before + 1
+    assert _rel(A, plain) < tol
     assert _rel(A, assemble_stencil_soa(ct, B, 0.1, shape)) < tol
+    assert torch.equal(asm.assemble_stencil_soa_kernel(ct, B, 0.1, shape), A)
+    padded = torch.zeros(shape + (8, 6, 6), dtype=dtype, device=cuda)
+    padded[:-1, :-1, :-1] = ct
+    sliced = padded[:-1, :-1, :-1]
+    assert not sliced.is_contiguous()
+    assert torch.equal(asm.assemble_stencil_soa_kernel(sliced, B, 0.1, shape), A)
 
 
 @pytest.mark.parametrize("dtype,tol", TOLS)
@@ -188,6 +200,18 @@ def test_wrappers_reject_bad_input(cuda):
         stencil_matvec(A.half(), torch.zeros((3, 4, 4, 4), device=cuda).half())
     with pytest.raises(ValueError):
         asm.combine_cuda(torch.zeros((576, 3, 3, 3), device=cuda), (4, 4, 5))
+    B = torch.as_tensor(b_matrix((1.0, 1.0, 1.0)), dtype=torch.float32, device=cuda)
+    ct = torch.zeros((3, 3, 3, 8, 6, 6), device=cuda)
+    before = asm.assemble_stencil_soa_kernel.launches
+    with pytest.raises(TypeError):
+        asm.assemble_stencil_soa_kernel(ct.half(), B.half(), 0.1, (4, 4, 4))
+    with pytest.raises(ValueError, match="pattern"):
+        asm.assemble_stencil_soa_kernel(ct, torch.rand_like(B), 0.1, (4, 4, 4))
+    with pytest.raises(ValueError, match="stride"):
+        asm.assemble_stencil_soa_kernel(ct.transpose(4, 5), B, 0.1, (4, 4, 4))
+    with pytest.raises(ValueError):
+        asm.assemble_stencil_soa_kernel(ct, B, 0.1, (4, 4, 5))
+    assert asm.assemble_stencil_soa_kernel.launches == before
     with pytest.raises(ValueError):
         stencil_matvec_v1(A, torch.zeros((3, 4, 4, 4), device=cuda), tile=(8, 8, 32))
     with pytest.raises(TypeError):
