@@ -29,23 +29,24 @@
 // Design: a block owns a column of TY x TZ nodes over a chunk [i0, i1) of
 // node layers along x, and marches along x one element layer at a time.
 // Each element layer's (TY+1)(TZ+1) halo elements are computed by the
-// block (1.27x recompute at 8 x 8, f32), in rounds of S elements whose
-// ctan is staged in shared memory by cp.async, double-buffered: the next
-// round's copy overlaps this round's arithmetic.  A thread owns one Ke
-// column (b,e) of one element and keeps its 24 rows in registers; the
-// team of an element is 24 threads, laid out so that e is uniform across a
-// warp (warp w holds e = w % 3 for 4 elements, lane = 8 * element + b), so
+// block (1.29x recompute at 7 x 8, f32).  Elements that share a node
+// differ in the parity of y or z, so the layer's elements are taken one
+// parity class ("colour") at a time, in rounds of at most S elements of
+// one colour: no two elements of a round touch the same node.  A round's
+// ctan is staged in shared memory by cp.async, three stages deep, so the
+// next round's copy overlaps this round's arithmetic.  A thread owns one Ke
+// column (b,e) of one element and keeps its 24 rows in registers; the team
+// of an element is 24 threads, laid out so that e is uniform across a warp
+// (warp w holds e = w % 3 for 4 elements, lane = 8 * element + b), so
 // every index into C and into the uniform dsh values is a compile-time
 // constant: the uniform dsh operands come straight from the constant bank.
-// The element's 576 values are then added into the block's node
-// accumulators in shared memory: two node layers (x and x+1) x 243
-// entries x TY*TZ nodes.  Elements of one layer that share a node have
-// different (y, z) parities, so the scatter runs in four colour phases with
-// a barrier between: no atomics, each accumulator entry has one writer at a
-// time, and its sum order is fixed, so two launches are bitwise equal.
-// When an element layer is done, the node layer below it is complete and
-// is written to A once, in z-runs of TZ (32 B sectors at TZ = 8, f32), and
-// its accumulators are cleared for the layer after next.
+// The thread then adds its 24 values into the block's node accumulators in
+// shared memory: two node layers (x and x+1) x 243 entries x TY*TZ nodes.
+// No atomics: within a round each accumulator entry has one writer, a
+// barrier separates rounds, and the round order is fixed, so two launches
+// are bitwise equal.  When an element layer is done, the node layer below
+// it is complete and is written to A once, in z-runs of TZ (32 B sectors at
+// TZ = 8, f32), and its accumulators are cleared for the layer after next.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -74,9 +75,11 @@ struct Dsh {
 };
 
 // Tiling per type: node column TY x TZ, S elements per round (24*S
-// threads); shared memory ~164 KB either way, one block per SM.
+// threads); shared memory ~180 KB either way, one block per SM.  At 7 x 8
+// (f32) the 8 x 9 halo elements fall into colours of 20, 16, 20 and 16:
+// one round of 20 each.
 template <typename T> struct Tile;
-template <> struct Tile<float> { static constexpr int TY = 8, TZ = 8, S = 16; };
+template <> struct Tile<float> { static constexpr int TY = 7, TZ = 8, S = 20; };
 template <> struct Tile<double> { static constexpr int TY = 4, TZ = 8, S = 8; };
 
 template <typename T>
@@ -89,7 +92,8 @@ struct Geo {
   static constexpr int NODES = TY * TZ;
   static constexpr int STR = NODES + 1;               // accumulator stride per K
   static constexpr int LAYER = 243 * STR;
-  static constexpr size_t SMEM = (2 * S * SLOT + 2 * LAYER) * sizeof(T);
+  static constexpr int NBUF = 3;                      // ctan stages
+  static constexpr size_t SMEM = (NBUF * S * SLOT + 2 * LAYER) * sizeof(T);
 };
 
 // the 24 rows of Ke column (b, E) of one element, over its 8 GPs
@@ -119,6 +123,22 @@ __device__ __forceinline__ void element_column(const T* __restrict__ cs,
   }
 }
 
+// the halo elements of one parity class ("colour") of a node column:
+// elements (y0 + 2*iy, z0 + 2*iz), iy < ny, iz < nz
+struct Colour {
+  int y0, ny, z0, nz;
+};
+
+__device__ __forceinline__ Colour colour_of(int c, int eyA, int eyB, int ezA,
+                                            int ezB) {
+  Colour k;
+  k.y0 = eyA + ((eyA & 1) != (c >> 1));
+  k.z0 = ezA + ((ezA & 1) != (c & 1));
+  k.ny = k.y0 <= eyB ? (eyB - k.y0) / 2 + 1 : 0;
+  k.nz = k.z0 <= ezB ? (ezB - k.z0) / 2 + 1 : 0;
+  return k;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(Geo<T>::NT, 1)
 assembly_fused_kernel(const T* __restrict__ ctan, T* __restrict__ A,
@@ -127,8 +147,8 @@ assembly_fused_kernel(const T* __restrict__ ctan, T* __restrict__ A,
   using G = Geo<T>;
   constexpr int TY = G::TY, TZ = G::TZ, S = G::S, NT = G::NT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* cs = reinterpret_cast<T*>(smem_raw);  // 2 x S x SLOT staged ctan
-  T* acc = cs + 2 * S * G::SLOT;           // 2 x LAYER node accumulators
+  T* cs = reinterpret_cast<T*>(smem_raw);  // NBUF x S x SLOT staged ctan
+  T* acc = cs + G::NBUF * S * G::SLOT;     // 2 x LAYER node accumulators
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -138,14 +158,29 @@ assembly_fused_kernel(const T* __restrict__ ctan, T* __restrict__ A,
   const int nex = nx - 1, ney = ny - 1, nez = nz - 1;
   const int k0 = blockIdx.x * TZ, j0 = blockIdx.y * TY;
   const int i0 = blockIdx.z * xchunk, i1 = min(i0 + xchunk, nx);
-  // the column's halo elements, clipped to the grid
+  // the column's halo elements, clipped to the grid, in four colours: a
+  // round holds elements of one colour, which share no node
   const int eyA = max(j0 - 1, 0), eyB = min(j0 + TY - 1, ney - 1);
   const int ezA = max(k0 - 1, 0), ezB = min(k0 + TZ - 1, nez - 1);
-  const int Ez = ezB - ezA + 1;
-  const int nel = (eyB - eyA + 1) * Ez;
-  const int nr = (nel + S - 1) / S;  // rounds per element layer
+  int nrc[4], nr = 0;  // rounds per colour and per element layer
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const Colour k = colour_of(c, eyA, eyB, ezA, ezB);
+    nrc[c] = (k.ny * k.nz + S - 1) / S;
+    nr += nrc[c];
+  }
   const int exA = max(i0 - 1, 0), exB = min(i1 - 1, nex - 1);
   const int nq = (exB - exA + 1) * nr;
+  // round q -> element layer, colour, first element of the colour
+  auto round_of = [&](int q, int& ex, Colour& k, int& first) {
+    ex = exA + q / nr;
+    int r = q % nr, c = 0;
+#pragma unroll
+    for (int cc = 0; cc < 3; ++cc)
+      if (c == cc && r >= nrc[cc]) { r -= nrc[cc]; c = cc + 1; }
+    k = colour_of(c, eyA, eyB, ezA, ezB);
+    first = r * S;
+  };
 
   for (int i = tid; i < 2 * G::LAYER; i += NT) acc[i] = T(0);
   // this thread's dsh[g, b, D[e][t]] * wg
@@ -156,13 +191,15 @@ assembly_fused_kernel(const T* __restrict__ ctan, T* __restrict__ A,
     for (int t = 0; t < 3; ++t) md[g][t] = P.v[g][b][dsh_comp(e, t)] * wg;
 
   auto prefetch = [&](int q) {
-    const int ex = exA + q / nr, r = q % nr;
-    T* dst = cs + (q & 1) * S * G::SLOT;
+    int ex, first;
+    Colour k;
+    round_of(q, ex, k, first);
+    T* dst = cs + (q % G::NBUF) * S * G::SLOT;
     for (int idx = tid; idx < S * G::CH; idx += NT) {
       const int sl = idx / G::CH, c = idx - sl * G::CH;
-      const int el = r * S + sl;
-      if (el < nel) {
-        const int ey = eyA + el / Ez, ez = ezA + el % Ez;
+      const int el = first + sl;
+      if (el < k.ny * k.nz) {
+        const int ey = k.y0 + 2 * (el / k.nz), ez = k.z0 + 2 * (el % k.nz);
         const T* src = ctan + ex * sx + ey * sy + (long long)ez * 288 + c * G::VEC;
         __pipeline_memcpy_async(dst + sl * G::SLOT + c * G::VEC, src, 16);
       }
@@ -182,46 +219,43 @@ assembly_fused_kernel(const T* __restrict__ ctan, T* __restrict__ A,
     }
   };
 
+  const int bx = off_x(b), by = off_y(b), bz = off_z(b);
   if (nq > 0) prefetch(0);
   for (int q = 0; q < nq; ++q) {
+    // NBUF = 3: the buffer refilled here was last read two rounds ago,
+    // before the previous round's barrier
     if (q + 1 < nq) prefetch(q + 1);
     else __pipeline_commit();  // an empty group keeps the count uniform
     __pipeline_wait_prior(1);
-    __syncthreads();
+    __syncthreads();  // round q staged; round q-1's scatter done
 
-    const int ex = exA + q / nr, r = q % nr;
-    const int el = r * S + s;
-    const bool valid = el < nel;
-    const int ey = eyA + (valid ? el / Ez : 0), ez = ezA + (valid ? el % Ez : 0);
-    T ke[24];
-    if (valid) {
-      const T* slot = cs + (q & 1) * S * G::SLOT + s * G::SLOT;
+    int ex, first;
+    Colour k;
+    round_of(q, ex, k, first);
+    const int el = first + s;
+    if (el < k.ny * k.nz) {
+      const int ey = k.y0 + 2 * (el / k.nz), ez = k.z0 + 2 * (el % k.nz);
+      const T* slot = cs + (q % G::NBUF) * S * G::SLOT + s * G::SLOT;
+      T ke[24];
       if (e == 0) element_column<T, 0>(slot, P, md, ke);
       else if (e == 1) element_column<T, 1>(slot, P, md, ke);
       else element_column<T, 2>(slot, P, md, ke);
-    }
-    // elements of one colour share no node: one colour at a time
-    const int colour = valid ? ((ey & 1) << 1 | (ez & 1)) : -1;
-    const int bx = off_x(b), by = off_y(b), bz = off_z(b);
-    for (int c = 0; c < 4; ++c) {
-      if (colour == c) {
+      // one colour per round: each accumulator entry has one writer
 #pragma unroll
-        for (int a = 0; a < 8; ++a) {
-          const int nl = ex + off_x(a);
-          const int jl = ey + off_y(a) - j0, kl = ez + off_z(a) - k0;
-          if (nl < i0 || nl >= i1 || jl < 0 || jl >= TY || kl < 0 || kl >= TZ) continue;
-          const int o = (bx - off_x(a) + 1) * 9 + (by - off_y(a) + 1) * 3 + (bz - off_z(a) + 1);
-          T* dst = acc + (nl & 1) * G::LAYER + jl * TZ + kl;
+      for (int a = 0; a < 8; ++a) {
+        const int nl = ex + off_x(a);
+        const int jl = ey + off_y(a) - j0, kl = ez + off_z(a) - k0;
+        if (nl < i0 || nl >= i1 || jl < 0 || jl >= TY || kl < 0 || kl >= TZ) continue;
+        const int o = (bx - off_x(a) + 1) * 9 + (by - off_y(a) + 1) * 3 + (bz - off_z(a) + 1);
+        T* dst = acc + (nl & 1) * G::LAYER + jl * TZ + kl;
 #pragma unroll
-          for (int d = 0; d < 3; ++d) dst[(o * 9 + d * 3 + e) * G::STR] += ke[a * 3 + d];
-        }
+        for (int d = 0; d < 3; ++d) dst[(o * 9 + d * 3 + e) * G::STR] += ke[a * 3 + d];
       }
-      __syncthreads();
     }
-    if (r == nr - 1) {  // element layer ex is done
+    if ((q + 1) % nr == 0) {  // element layer ex is done
+      __syncthreads();
       if (ex >= i0) write_layer(ex);
       if (ex == nex - 1 && i1 == nx) write_layer(nx - 1);
-      __syncthreads();
     }
   }
 }

@@ -156,31 +156,35 @@ def b_dsh(B: torch.Tensor) -> np.ndarray:
 
 
 # K2's node column (TY, TZ) per type (csrc/assembly_fused.cu, Tile<T>)
-FUSED_TILE = {torch.float32: (8, 8), torch.float64: (4, 8)}
+FUSED_TILE = {torch.float32: (7, 8), torch.float64: (4, 8)}
 
 
-def fused_xchunk(grid_shape: Tuple[int, int, int], dtype: torch.dtype, n_sm: int) -> int:
-    """Node layers per block along x: the grid's node columns are cut into
-    x chunks until there are about 8 blocks per SM (one block runs per SM;
-    each chunk recomputes one element layer)."""
+@lru_cache(maxsize=None)
+def fused_xchunk(grid_shape: Tuple[int, int, int], tile: Tuple[int, int], n_sm: int) -> int:
+    """Node layers per block along x.  One block runs per SM, and a chunk
+    of c layers costs about c + 1 element layers (the halo layer below it):
+    take the chunking with the least (waves of blocks) x (layers per
+    block)."""
     nx, ny, nz = grid_shape
-    ty, tz = FUSED_TILE[dtype]
-    columns = -(-ny // ty) * -(-nz // tz)
-    chunks = min(nx, max(1, -(-8 * n_sm // columns)))
-    return -(-nx // chunks)
+    columns = -(-ny // tile[0]) * -(-nz // tile[1])
+    best = None
+    for chunks in range(1, min(nx, 64) + 1):
+        xc = -(-nx // chunks)
+        cost = -(-columns * -(-nx // xc) // n_sm) * (xc + 1)
+        if best is None or cost < best[0]:
+            best = (cost, xc)
+    return best[1]
 
 
 def check_fused_layout(ctan: torch.Tensor) -> None:
     """Raise ValueError unless K2 can read ctan in place: each element's
     288 values contiguous, elements at stride 288 along z (a contiguous
     tensor or a slice of a node-shaped one: the Newton step hands over the
-    latter), 16-byte aligned.  A size-1 axis is never stepped along."""
+    latter).  A size-1 axis is never stepped along."""
     st = ctan.stride()
     if st[3:] != (36, 6, 1) or (ctan.shape[2] > 1 and st[2] != 288):
         raise ValueError(f"K2 needs each element's 8x6x6 tangents contiguous and "
                          f"elements at stride 288 along z, got strides {st}")
-    if ctan.data_ptr() % 16:
-        raise ValueError("K2 needs ctan aligned to 16 bytes")
 
 
 def _fused_cuda(ctan: torch.Tensor, dsh: np.ndarray, wg: float,
@@ -204,7 +208,7 @@ def _fused_cuda(ctan: torch.Tensor, dsh: np.ndarray, wg: float,
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, _FUSED_ENTRY[ctan.dtype])(
             ctan.data_ptr(), host.ctypes.data, A.data_ptr(), float(wg), nx, ny, nz,
-            st[0], st[1], fused_xchunk(grid_shape, ctan.dtype, n_sm), stream,
+            st[0], st[1], fused_xchunk(grid_shape, FUSED_TILE[ctan.dtype], n_sm), stream,
         )
     _build.check(err, "fused assembly (K2)")
     return A

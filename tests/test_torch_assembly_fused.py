@@ -4,9 +4,10 @@ The CUDA kernel runs only on a card.  Its arithmetic and its tiling are
 replayed here in numpy, step for step: the sparse-B contraction (a thread's
 Ke column from B's three nonzero Voigt rows per column), the node column
 (TY x TZ) marching along x through its chunk of node layers, the element
-layer's halo elements in rounds of S, the four colour phases of the
-scatter into a two-layer accumulator ring, and the write-out of each node
-layer when the element layer above it is done.  The replica is held at
+layer's halo elements in rounds of at most S elements of one colour
+(parity class: elements of one colour share no node), the scatter into a
+two-layer accumulator ring, and the write-out of each node layer when the
+element layer above it is done.  The replica is held at
 float64 to the wrapper's plain version on CPU tensors and to the JAX
 package's ``assemble_stencil_soa_mxu`` (interpret mode) within 1e-12
 relative: the same sums in another order.  Every node must be written
@@ -71,8 +72,19 @@ def ke_sparse(C, dsh, wg):
     return np.einsum("gadt,ngdtbe->nadbe", dsh[:, :, D], CB[:, :, R])
 
 
+def colours(eyA, eyB, ezA, ezB):
+    """The column's halo elements in the kernel's colour order: parity
+    classes (y, z) = (0,0), (0,1), (1,0), (1,1), each row-major."""
+    out = []
+    for c in range(4):
+        y0 = eyA + ((eyA & 1) != (c >> 1))
+        z0 = ezA + ((ezA & 1) != (c & 1))
+        out.append([(ey, ez) for ey in range(y0, eyB + 1, 2) for ez in range(z0, ezB + 1, 2)])
+    return out
+
+
 def replica(ctan, dsh, wg, grid_shape, ty, tz, S, xchunk):
-    """The kernel's blocks, rounds, colour phases and write-outs in numpy."""
+    """The kernel's blocks, rounds and write-outs in numpy."""
     nx, ny, nz = grid_shape
     nex, ney, nez = nx - 1, ny - 1, nz - 1
     A = np.full((243, nx, ny, nz), np.nan)
@@ -84,12 +96,11 @@ def replica(ctan, dsh, wg, grid_shape, ty, tz, S, xchunk):
                 i1 = min(i0 + xchunk, nx)
                 eyA, eyB = max(j0 - 1, 0), min(j0 + ty - 1, ney - 1)
                 ezA, ezB = max(k0 - 1, 0), min(k0 + tz - 1, nez - 1)
-                Ez = ezB - ezA + 1
-                nel = (eyB - eyA + 1) * Ez
-                nr = -(-nel // S)
+                # a round: at most S elements of one colour
+                rounds = [els[f:f + S] for els in colours(eyA, eyB, ezA, ezB)
+                          for f in range(0, len(els), S)]
                 exA, exB = max(i0 - 1, 0), min(i1 - 1, nex - 1)
-                nq = (exB - exA + 1) * nr
-                assert nq > 0
+                assert rounds and exB >= exA
                 acc = np.zeros((2, 243, ty, tz))
 
                 def write_layer(n):
@@ -101,26 +112,24 @@ def replica(ctan, dsh, wg, grid_shape, ty, tz, S, xchunk):
                                 writes[n, j, k] += 1
                     acc[n & 1] = 0.0
 
-                for q in range(nq):
-                    ex, r = exA + q // nr, q % nr
-                    els = [(eyA + el // Ez, ezA + el % Ez)
-                           for el in range(r * S, min(r * S + S, nel))]
-                    ke = ke_sparse(np.stack([ctan[ex, ey, ez] for ey, ez in els]), dsh, wg)
-                    for colour in range(4):
+                for ex in range(exA, exB + 1):
+                    for els in rounds:
+                        ke = ke_sparse(np.stack([ctan[ex, ey, ez] for ey, ez in els]), dsh, wg)
+                        touched = set()
                         for (ey, ez), k in zip(els, ke):
-                            if ((ey & 1) << 1 | (ez & 1)) != colour:
-                                continue
                             for a in range(8):
                                 nl = ex + OFF[a, 0]
                                 jl, kl = ey + OFF[a, 1] - j0, ez + OFF[a, 2] - k0
                                 if not (i0 <= nl < i1 and 0 <= jl < ty and 0 <= kl < tz):
                                     continue
+                                # one writer per accumulator entry in a round
+                                assert (nl, jl, kl) not in touched
+                                touched.add((nl, jl, kl))
                                 acc[nl & 1, K_TABLE[a], jl, kl] += k[a].reshape(72)
-                    if r == nr - 1:
-                        if ex >= i0:
-                            write_layer(ex)
-                        if ex == nex - 1 and i1 == nx:
-                            write_layer(nx - 1)
+                    if ex >= i0:
+                        write_layer(ex)
+                    if ex == nex - 1 and i1 == nx:
+                        write_layer(nx - 1)
     assert np.all(writes == 1), "a node was written other than once"
     assert not np.isnan(A).any()
     return A
@@ -166,9 +175,9 @@ def test_sparse_contraction_matches_dense(spacing):
     assert _rel(ke_sparse(C, asm.b_dsh(torch.as_tensor(B)), 0.3), dense) < 1e-14
 
 
-# (ty, tz, S): the kernel's f32 and f64 tiles, and a small odd one that
-# leaves ragged columns and partial rounds everywhere
-TILES = [(8, 8, 16), (4, 8, 8), (3, 2, 5)]
+# (ty, tz, S): the kernel's f32 and f64 tiles, and small odd ones that
+# leave ragged columns and colours split over several rounds
+TILES = [(7, 8, 20), (4, 8, 8), (3, 2, 5), (5, 3, 2)]
 # no tile divides (6,5,4) or (11,9,13); (5,3,9) and (10,3,10) are ny=3
 # pancakes; (3,3,3) is 2x2x2 elements
 SHAPES = [(6, 5, 4), (5, 3, 9), (3, 3, 3), (10, 3, 10), (11, 9, 13)]
@@ -180,10 +189,7 @@ SHAPES = [(6, 5, 4), (5, 3, 9), (3, 3, 3), (10, 3, 10), (11, 9, 13)]
 def test_replica_matches_the_plain_version(shape, tile, n_sm):
     B, ct, dsh = _case(shape, sum(shape))
     ty, tz, S = tile
-    # fused_xchunk's rule for this column tile
-    cols = -(-shape[1] // ty) * -(-shape[2] // tz)
-    chunks = min(shape[0], max(1, -(-8 * n_sm // cols)))
-    A = replica(ct, dsh, 0.125, shape, ty, tz, S, -(-shape[0] // chunks))
+    A = replica(ct, dsh, 0.125, shape, ty, tz, S, asm.fused_xchunk(shape, (ty, tz), n_sm))
     before = asm.assemble_stencil_soa_kernel.launches
     A_plain = asm.assemble_stencil_soa_kernel(torch.as_tensor(ct), torch.as_tensor(B),
                                               0.125, shape)
@@ -222,11 +228,12 @@ def test_b_pattern_check_raises():
 
 def test_fused_xchunk_covers_the_grid():
     for shape in [(128, 128, 128), (50, 3, 50), (2, 2, 2), (9, 9, 9), (65, 33, 17)]:
-        for dtype in (torch.float32, torch.float64):
+        for tile in asm.FUSED_TILE.values():
             for n_sm in (1, 132):
-                xc = asm.fused_xchunk(shape, dtype, n_sm)
+                xc = asm.fused_xchunk(shape, tile, n_sm)
                 assert 1 <= xc <= shape[0]
-    assert asm.fused_xchunk((128, 128, 128), torch.float32, 132) == 26
+    # 128^3 f32 on 132 SMs: 19 x 16 columns in 3 chunks of 43 layers
+    assert asm.fused_xchunk((128, 128, 128), asm.FUSED_TILE[torch.float32], 132) == 43
 
 
 def test_main_path_ctan_passes_the_layout_check(monkeypatch):
