@@ -175,14 +175,13 @@ def time_ms(fn, reps):
 
 
 F32_TFLOPS = 67.0  # the H100 SXM's published FP32 rate outside the tensor cores
-F64_TFLOPS = 34.0  # its published FP64 rate outside the tensor cores
 
 
-def bound(nbytes, flops, dtype=torch.float32):
-    """(bound_ms, bound_by): the larger of moving ``nbytes`` at the HBM rate
-    and doing ``flops`` at the card's peak for the type."""
+def bound(nbytes, flops):
+    """(bound_ms, bound_by) of f32 work: the larger of moving ``nbytes`` at
+    the HBM rate and doing ``flops`` at the card's FP32 peak."""
     mem_ms = nbytes / (HBM_GBS * 1e6)
-    op_ms = flops / ((F32_TFLOPS if dtype == torch.float32 else F64_TFLOPS) * 1e9)
+    op_ms = flops / (F32_TFLOPS * 1e9)
     return (mem_ms, "bytes") if mem_ms >= op_ms else (op_ms, "operations")
 
 

@@ -260,20 +260,39 @@ assembly_fused_kernel(const T* __restrict__ ctan, T* __restrict__ A,
   }
 }
 
+// Node layers per block along x.  One block runs per SM, and a chunk of c
+// layers costs about c + 1 element layers (the halo layer below it): take
+// the chunking with the least (waves of blocks) x (layers per block).
+int x_chunk(int nx, int columns, int n_sm) {
+  int best = nx, best_cost = -1;
+  for (int chunks = 1; chunks <= nx && chunks <= 64; ++chunks) {
+    const int xc = (nx + chunks - 1) / chunks;
+    const int blocks = columns * ((nx + xc - 1) / xc);
+    const int cost = (blocks + n_sm - 1) / n_sm * (xc + 1);
+    if (best_cost < 0 || cost < best_cost) best_cost = cost, best = xc;
+  }
+  return best;
+}
+
 template <typename T>
 int launch(const void* ctan, const void* dsh, void* A, double wg, int nx,
-           int ny, int nz, long long sx, long long sy, int xchunk,
-           void* stream) {
+           int ny, int nz, long long sx, long long sy, void* stream) {
   using G = Geo<T>;
   Dsh<T> P;
   const T* h = static_cast<const T*>(dsh);
   for (int i = 0; i < 192; ++i) (&P.v[0][0][0])[i] = h[i];
-  cudaError_t err = cudaFuncSetAttribute(
-      assembly_fused_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)G::SMEM);
+  int dev = 0, n_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(assembly_fused_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)G::SMEM);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((nz + G::TZ - 1) / G::TZ, (ny + G::TY - 1) / G::TY,
-                  (nx + xchunk - 1) / xchunk);
+  const int gz = (nz + G::TZ - 1) / G::TZ, gy = (ny + G::TY - 1) / G::TY;
+  const int xchunk = x_chunk(nx, gy * gz, n_sm);
+  const dim3 grid(gz, gy, (nx + xchunk - 1) / xchunk);
   assembly_fused_kernel<T><<<grid, G::NT, G::SMEM, (cudaStream_t)stream>>>(
       (const T*)ctan, (T*)A, P, (T)wg, nx, ny, nz, sx, sy, xchunk);
   return (int)cudaGetLastError();
@@ -284,18 +303,18 @@ int launch(const void* ctan, const void* dsh, void* A, double wg, int nx,
 extern "C" {
 
 // ctan: device, element strides (sx, sy, 288) in values; dsh: host
-// T[8*8*3]; A: device (243, nx, ny, nz); nx, ny, nz >= 2; xchunk >= 1 node
-// layers per block
+// T[8*8*3]; A: device (243, nx, ny, nz); nx, ny, nz >= 2; launched on the
+// current device
 int macroc_assembly_fused_f32(const void* ctan, const void* dsh, void* A,
                               double wg, int nx, int ny, int nz, long long sx,
-                              long long sy, int xchunk, void* stream) {
-  return launch<float>(ctan, dsh, A, wg, nx, ny, nz, sx, sy, xchunk, stream);
+                              long long sy, void* stream) {
+  return launch<float>(ctan, dsh, A, wg, nx, ny, nz, sx, sy, stream);
 }
 
 int macroc_assembly_fused_f64(const void* ctan, const void* dsh, void* A,
                               double wg, int nx, int ny, int nz, long long sx,
-                              long long sy, int xchunk, void* stream) {
-  return launch<double>(ctan, dsh, A, wg, nx, ny, nz, sx, sy, xchunk, stream);
+                              long long sy, void* stream) {
+  return launch<double>(ctan, dsh, A, wg, nx, ny, nz, sx, sy, stream);
 }
 
 }  // extern "C"

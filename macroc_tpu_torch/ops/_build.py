@@ -48,9 +48,9 @@ _SIGNATURES = {
     # (A, x, y, nx, ny, nz, TX, TY, TZ, stream)
     "macroc_stencil_spmv_v1_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "macroc_stencil_spmv_v1_f64": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # (ctan, host dsh, A, wg, nx, ny, nz, sx, sy, xchunk, stream)
-    "macroc_assembly_fused_f32": (_P, _P, _P, _D, _I, _I, _I, _L, _L, _I, _P),
-    "macroc_assembly_fused_f64": (_P, _P, _P, _D, _I, _I, _I, _L, _L, _I, _P),
+    # (ctan, host dsh, A, wg, nx, ny, nz, sx, sy, stream)
+    "macroc_assembly_fused_f32": (_P, _P, _P, _D, _I, _I, _I, _L, _L, _P),
+    "macroc_assembly_fused_f64": (_P, _P, _P, _D, _I, _I, _I, _L, _L, _P),
     # (Ke, A, nx, ny, nz, stream)
     "macroc_assembly_combine_f32": (_P, _P, _I, _I, _I, _P),
     "macroc_assembly_combine_f64": (_P, _P, _I, _I, _I, _P),

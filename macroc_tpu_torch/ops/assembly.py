@@ -155,27 +155,6 @@ def b_dsh(B: torch.Tensor) -> np.ndarray:
     return dsh
 
 
-# K2's node column (TY, TZ) per type (csrc/assembly_fused.cu, Tile<T>)
-FUSED_TILE = {torch.float32: (7, 8), torch.float64: (4, 8)}
-
-
-@lru_cache(maxsize=None)
-def fused_xchunk(grid_shape: Tuple[int, int, int], tile: Tuple[int, int], n_sm: int) -> int:
-    """Node layers per block along x.  One block runs per SM, and a chunk
-    of c layers costs about c + 1 element layers (the halo layer below it):
-    take the chunking with the least (waves of blocks) x (layers per
-    block)."""
-    nx, ny, nz = grid_shape
-    columns = -(-ny // tile[0]) * -(-nz // tile[1])
-    best = None
-    for chunks in range(1, min(nx, 64) + 1):
-        xc = -(-nx // chunks)
-        cost = -(-columns * -(-nx // xc) // n_sm) * (xc + 1)
-        if best is None or cost < best[0]:
-            best = (cost, xc)
-    return best[1]
-
-
 def check_fused_layout(ctan: torch.Tensor) -> None:
     """Raise ValueError unless K2 can read ctan in place: each element's
     288 values contiguous, elements at stride 288 along z (a contiguous
@@ -204,11 +183,10 @@ def _fused_cuda(ctan: torch.Tensor, dsh: np.ndarray, wg: float,
     host = np.ascontiguousarray(dsh, dtype=np.float32 if ctan.dtype == torch.float32
                                 else np.float64)
     with torch.cuda.device(ctan.device):
-        n_sm = torch.cuda.get_device_properties(ctan.device).multi_processor_count
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, _FUSED_ENTRY[ctan.dtype])(
             ctan.data_ptr(), host.ctypes.data, A.data_ptr(), float(wg), nx, ny, nz,
-            st[0], st[1], fused_xchunk(grid_shape, FUSED_TILE[ctan.dtype], n_sm), stream,
+            st[0], st[1], stream,
         )
     _build.check(err, "fused assembly (K2)")
     return A

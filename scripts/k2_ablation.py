@@ -92,13 +92,11 @@ def main():
     B = torch.as_tensor(b_matrix((1.0, 1.0, 1.0)), dtype=torch.float32, device=dev)
     dsh = np.ascontiguousarray(asm.b_dsh(B), dtype=np.float32)
     A = torch.empty((243,) + SHAPE, device=dev)
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    xc = asm.fused_xchunk(SHAPE, asm.FUSED_TILE[torch.float32], n_sm)
     st = ct.stride()
 
     def launch(fn):
         _build.check(fn(ct.data_ptr(), dsh.ctypes.data, A.data_ptr(), 0.1, *SHAPE, st[0], st[1],
-                        xc, torch.cuda.current_stream().cuda_stream), "K2 ablation")
+                        torch.cuda.current_stream().cuda_stream), "K2 ablation")
 
     launch(libs["kernel"])
     ref = asm.assemble_stencil_soa_plain(ct, B, 0.1, SHAPE)
@@ -120,8 +118,7 @@ def main():
             torch.cuda.synchronize()
             times[name].append(start.elapsed_time(end) / 10)
     for name, t in times.items():
-        print(f"{name}: {' / '.join(f'{v:.4f}' for v in t)} ms (127^3 f32 elements, "
-              f"{xc} node layers per block)")
+        print(f"{name}: {' / '.join(f'{v:.4f}' for v in t)} ms (127^3 f32 elements)")
     return 0
 
 

@@ -183,13 +183,14 @@ TILES = [(7, 8, 20), (4, 8, 8), (3, 2, 5), (5, 3, 2)]
 SHAPES = [(6, 5, 4), (5, 3, 9), (3, 3, 3), (10, 3, 10), (11, 9, 13)]
 
 
-@pytest.mark.parametrize("n_sm", [1, 132])
+# node layers per block: one per block, ragged chunks, the whole x extent
+@pytest.mark.parametrize("xchunk", [1, 3, 100])
 @pytest.mark.parametrize("tile", TILES, ids=str)
 @pytest.mark.parametrize("shape", SHAPES, ids=str)
-def test_replica_matches_the_plain_version(shape, tile, n_sm):
+def test_replica_matches_the_plain_version(shape, tile, xchunk):
     B, ct, dsh = _case(shape, sum(shape))
     ty, tz, S = tile
-    A = replica(ct, dsh, 0.125, shape, ty, tz, S, asm.fused_xchunk(shape, (ty, tz), n_sm))
+    A = replica(ct, dsh, 0.125, shape, ty, tz, S, min(xchunk, shape[0]))
     before = asm.assemble_stencil_soa_kernel.launches
     A_plain = asm.assemble_stencil_soa_kernel(torch.as_tensor(ct), torch.as_tensor(B),
                                               0.125, shape)
@@ -224,16 +225,6 @@ def test_b_pattern_check_raises():
         asm.b_dsh(torch.as_tensor(B))
     with pytest.raises(ValueError, match="8, 6, 8, 3"):
         asm.b_dsh(torch.zeros(8, 6, 8))
-
-
-def test_fused_xchunk_covers_the_grid():
-    for shape in [(128, 128, 128), (50, 3, 50), (2, 2, 2), (9, 9, 9), (65, 33, 17)]:
-        for tile in asm.FUSED_TILE.values():
-            for n_sm in (1, 132):
-                xc = asm.fused_xchunk(shape, tile, n_sm)
-                assert 1 <= xc <= shape[0]
-    # 128^3 f32 on 132 SMs: 19 x 16 columns in 3 chunks of 43 layers
-    assert asm.fused_xchunk((128, 128, 128), asm.FUSED_TILE[torch.float32], 132) == 43
 
 
 def test_main_path_ctan_passes_the_layout_check(monkeypatch):
