@@ -10,7 +10,8 @@ hand-written CUDA C++ kernel for Hopper (``sm_90a``):
   - K1, the 27-point block-stencil SpMV, also with an operator narrower
     than its vectors (``ops/stencil_spmv.py``);
   - K1v1, its shared-memory-tile variant (``ops/stencil_spmv.py``);
-  - K2, the stencil-assembly combine (``ops/assembly.py``).
+  - K2, the stencil assembly from per-GP tangents, one fused kernel
+    (``ops/assembly.py``).
 
 Module names mirror ``macroc_tpu`` so each counterpart is easy to find.  The
 package imports torch and numpy, never jax and nothing of ``macroc_tpu``:
