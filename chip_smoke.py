@@ -54,7 +54,19 @@ non-zero without the result line):
                bending line at lx=lz=10; the 10x3x10 full-solve line, 3
                steps with a checkpoint at step 2 that a -resume run takes
                up (a MicroState); and the 50x3x50 bending grid loaded until
-               micro GPs yield.
+               micro GPs yield;
+ 12. dist    — the domain-decomposed run: K2 on each rank's local box plus
+               one node plane per split axis (a slice of a node-shaped
+               tangent field) and K1's halo form on the exchanged x, at the
+               rank blocks of this phase's lines and of 128^3 over 2, 4 and
+               8 ranks, f32 and f64, against their plain versions; then
+               ``macroc_tpu_torch.cli`` as separate processes, each with
+               its launch counters: scripts/pod_run.sh's 100^3 line (2
+               steps, Jacobi, f32) as 2 ranks sharing the card (gloo by
+               the backend rule) against 1 process, and the f64
+               bending_plastic_5x3x3 golden line at 2 ranks against 1
+               process within the golden roundoff bounds; where there are
+               two cards, the 100^3 line again with NCCL.
 
 The second-to-last line is the per-kernel JSON record, the last line
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits 1
@@ -832,8 +844,285 @@ def phase_fe2(dev):
     return launches
 
 
+# the JAX package's documented multi-device line (scripts/pod_run.sh: the
+# reference's 100^3 strong-scaling grid), 2 of its steps, Jacobi PCG, f32
+POD_RUN = [
+    "-da_grid_x", "100", "-da_grid_y", "100", "-da_grid_z", "100", "-lx", "50", "-ly", "50",
+    "-lz", "50", "-bc_type", "1", "-rad", "10", "-newton_max_its", "4", "-dt", "0.001",
+    "-ts", "2", "-pc_type", "jacobi", "-dtype", "float32",
+]
+# the bending_plastic_5x3x3 golden's flags (tests/make_goldens.py), f64
+PLASTIC_5 = [
+    "-da_grid_x", "5", "-da_grid_y", "3", "-da_grid_z", "3", "-lx", "4", "-ly", "2", "-lz", "2",
+    "-bc_type", "0", "-ts", "4", "-dt", "0.15", "-newton_max_its", "10", "-dtype", "float64",
+]
+# N ranks against one process on the pod_run.sh line: info.dat rows to this
+# relative bound (f32 dots summed in another order through a Jacobi solve),
+# KSP its per solve within 2% or 2
+POD_RTOL = 1e-4
+# the per-rank kernel shapes against the plain versions, relative: K2 (f32,
+# f64) as PR 5 held it; K1 to the same f32 bound and ~9 f64 ulps (its 81
+# products per entry are summed in another order than the plain version's;
+# the largest block here, 128^3 over 2, deviates by 1.0e-15 at f64)
+DIST_TOLS = {"K2": {torch.float32: 1e-6, torch.float64: 1e-15},
+             "K1": {torch.float32: 1e-6, torch.float64: 2e-15}}
+# one rank of a run: macroc_tpu_torch.cli with the kernels' launch counters
+# set to 0 before it; prints its history, counts and process-group backend
+RANK_PROGRAM = r"""
+import json, os, sys
+import torch
+from macroc_tpu_torch import cli
+from macroc_tpu_torch.ops.assembly import assemble_stencil_soa_kernel as k2
+from macroc_tpu_torch.ops.stencil_spmv import stencil_matvec as k1
+from macroc_tpu_torch.parallel import distributed
+
+backend = []
+shutdown = distributed.shutdown
+distributed.shutdown = lambda: (backend.append(torch.distributed.get_backend()), shutdown())
+k1.launches = k1.narrow_launches = 0
+k2.launches = 0
+result = cli.run(json.loads(sys.argv[1]))
+print("RANK " + json.dumps(dict(
+    rank=int(os.environ.get("MACROC_PROCESS_ID", "0")), backend=(backend or [None])[0],
+    K1=k1.launches, K2=k2.launches, history=result["history"])), flush=True)
+"""
+
+
+# the rank-grid costs of one CG iteration on the pod_run.sh block, each
+# rank timing on the host clock (they share the card): a 2-element
+# all-reduce, the halo exchange of x, K1's halo form, and both together
+COMM_PROGRAM = r"""
+import json, sys, time
+import torch
+import torch.nn.functional as F
+from macroc_tpu_torch.grid import StructuredGrid3D
+from macroc_tpu_torch.ops.stencil_spmv import stencil_matvec
+from macroc_tpu_torch.parallel import distributed, halo
+from macroc_tpu_torch.parallel.mesh import RankMesh
+
+distributed.maybe_initialize()
+dev = distributed.local_device("cuda")
+nx, ny, nz, procs = json.loads(sys.argv[1])
+mesh = RankMesh(StructuredGrid3D(nx, ny, nz, 50.0, 50.0, 50.0, procs=tuple(procs)),
+                distributed.Comm(dev))
+gen = torch.Generator(device=dev)
+gen.manual_seed(8)
+A = torch.randn((27, 3, 3) + mesh.block, device=dev, generator=gen)
+x = torch.randn((3,) + mesh.block, device=dev, generator=gen)
+xe = F.pad(x, (1, 1, 1, 1, 1, 1))
+dots = torch.randn(2, device=dev, generator=gen)
+
+def per_call_ms(fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+out = dict(rank=mesh.comm.rank, backend=mesh.comm.backend,
+           allreduce_ms=per_call_ms(lambda: mesh.comm.sum(dots), 200),
+           halo_exchange_ms=per_call_ms(lambda: halo.halo_exchange(x, mesh, dims=(1, 2, 3)), 100),
+           k1_halo_ms=per_call_ms(lambda: stencil_matvec(A, xe, halo=True), 100),
+           matvec_local_ms=per_call_ms(lambda: halo.stencil_matvec_local(A, x, mesh), 100))
+print("RANK " + json.dumps(out), flush=True)
+distributed.shutdown()
+"""
+
+
+def spawn_ranks(tag, program, arg, n, timeout=600):
+    """``python -c program arg`` as n processes of one process group (the
+    MACROC_* environment, a free localhost port; none for n=1), each
+    reaching the card by the backend rule; returns the JSON of each rank's
+    last ``RANK`` line, in rank order.  A rank that fails or outlives
+    ``timeout`` fails the phase, and every process is stopped."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for rank in range(n):
+        env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        if n > 1:
+            env.update(MACROC_COORDINATOR=f"localhost:{port}", MACROC_NUM_PROCESSES=str(n),
+                       MACROC_PROCESS_ID=str(rank))
+        procs.append(subprocess.Popen([sys.executable, "-c", program, arg], cwd=REPO,
+                                      env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    records = []
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        lines = [l for l in out.splitlines() if l.startswith("RANK ")]
+        check(p.returncode == 0 and lines, f"{tag}: rank {rank} failed:\n{out[-3000:]}")
+        records.append(json.loads(lines[-1][5:]))
+    return records
+
+
+def launch_ranks(tag, flags, n, out_dir):
+    """``RANK_PROGRAM`` (the CLI) on ``flags`` as n ranks; checks every
+    step converged and every rank launched K1 and K2."""
+    records = spawn_ranks(tag, RANK_PROGRAM, json.dumps(flags + ["-output_dir", out_dir]), n)
+    for r in records:
+        h = r["history"]
+        log(f"[{tag}] rank {r['rank']} of {n} (backend {r['backend']}): step seconds "
+            f"{[round(s['seconds'], 4) for s in h]}, KSP its {[s['ksp_its'] for s in h]}, "
+            f"launches K1 {r['K1']} K2 {r['K2']}")
+        check(all(s["converged"] for s in h), f"{tag}: a step did not converge")
+        check(r["K1"] > 0 and r["K2"] > 0, f"{tag}: rank {r['rank']} launched no K1 or K2")
+    return records
+
+
+def info_table(out_dir):
+    return [[float(v) for v in row.split("\t")] for row in info_rows(out_dir)]
+
+
+def dist_shapes():
+    """(label, node grid, rank grid) of the decompositions the dist phase
+    runs and of 128^3 over 2, 4 and 8 ranks, by decide_processor_grid."""
+    from macroc_tpu_torch.grid import decide_processor_grid
+
+    grids = [("pod_run 100^3", (100,) * 3, 2), ("plastic 5x3x3", (5, 3, 3), 2)]
+    grids += [("128^3", (128,) * 3, n) for n in (2, 4, 8)]
+    return [(f"{label} over {n}", g, decide_processor_grid(n, *g)) for label, g, n in grids]
+
+
+def phase_dist(dev):
+    """The domain-decomposed J2 run: per-rank kernel shapes, the pod_run.sh
+    line as 2 processes on the card against 1 process, the f64 plastic
+    golden line at 2 ranks against 1, and the NCCL run where there is a
+    card per rank."""
+    from macroc_tpu_torch.fem.element import b_matrix
+    from macroc_tpu_torch.ops import assembly as asm
+    from macroc_tpu_torch.ops.stencil_spmv import stencil_matvec, stencil_matvec_soa
+
+    gen = torch.Generator(device=dev)
+    for label, g, procs in dist_shapes():
+        padded = tuple(-(-n // p) * p for n, p in zip(g, procs))
+        block = tuple(n // p for n, p in zip(padded, procs))
+        split = tuple(p > 1 for p in procs)
+        sl = tuple(slice(0, b if s else b - 1) for b, s in zip(block, split))
+        grid_l = tuple(b + int(s) for b, s in zip(block, split))
+        errs = []
+        for dtype in (torch.float32, torch.float64):
+            gen.manual_seed(6)
+            B = torch.as_tensor(b_matrix((1.0, 1.0, 1.0)), dtype=dtype, device=dev)
+            ct = torch.randn(block + (8, 6, 6), dtype=dtype, device=dev, generator=gen)[sl]
+            A = asm.assemble_stencil_soa_kernel(ct, B, 0.1, grid_l)
+            same = torch.equal(asm.assemble_stencil_soa_kernel(ct, B, 0.1, grid_l), A)
+            e2 = rel_err(A.reshape(243, *grid_l), asm.assemble_stencil_soa_plain(ct, B, 0.1, grid_l))
+            del A, ct
+            A = torch.randn((27, 3, 3) + block, dtype=dtype, device=dev, generator=gen)
+            x = torch.randn((3,) + tuple(b + 2 for b in block), dtype=dtype, device=dev,
+                            generator=gen)
+            e1 = rel_err(stencil_matvec(A, x, halo=True), stencil_matvec_soa(A, x, halo=True))
+            del A, x
+            errs.append(f"{str(dtype)[6:]} K2 {e2:.3e} (repeat bitwise {same}), K1 halo {e1:.3e}")
+            check(same and e2 <= DIST_TOLS["K2"][dtype] and e1 <= DIST_TOLS["K1"][dtype],
+                  f"per-rank kernels disagree at {label} {dtype}: K2 {e2:.3e} bitwise {same}, "
+                  f"K1 {e1:.3e}")
+        log(f"[dist shapes] {label} ranks {procs}: block {block}, K2 on a node-shaped tangent "
+            f"slice {tuple(s.stop for s in sl)} elements -> grid {grid_l}, K1 halo on x "
+            f"{tuple(b + 2 for b in block)}: " + "; ".join(errs))
+    # the pod_run.sh block's kernels timed, f32 (two ranks share the card)
+    label, g, procs = dist_shapes()[0]
+    block = tuple(n // p for n, p in zip(g, procs))
+    gen.manual_seed(7)
+    A = torch.randn((27, 3, 3) + block, device=dev, generator=gen)
+    x = torch.randn((3,) + tuple(b + 2 for b in block), device=dev, generator=gen)
+    k1_ms = time_ms(lambda: stencil_matvec(A, x, halo=True), 50)
+    del A, x
+    log(f"[dist shapes] {label}: K1 halo form on the rank block {block} f32 {k1_ms:.4f} ms")
+    grid_args = json.dumps(list(g) + [list(procs)])
+    for r in spawn_ranks("dist comm", COMM_PROGRAM, grid_args, 2):
+        log(f"[dist comm] rank {r['rank']} of 2 ({r['backend']}, sharing the card), host ms per "
+            f"call: 2-element all-reduce {r['allreduce_ms']:.4f}, halo exchange of x "
+            f"{r['halo_exchange_ms']:.4f}, K1 halo form {r['k1_halo_ms']:.4f}, exchange + K1 "
+            f"{r['matvec_local_ms']:.4f}")
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as one, tempfile.TemporaryDirectory() as two:
+        r1 = launch_ranks("dist pod_run 1 process", POD_RUN, 1, one)[0]
+        r2 = launch_ranks("dist pod_run 2 ranks", POD_RUN, 2, two)
+        launches["dist_pod_2ranks"] = {k: sum(r[k] for r in r2) for k in ("K1", "K2")}
+        h1, h2 = r1["history"], r2[0]["history"]
+        check(r2[0]["backend"] == "gloo", f"dist pod_run: backend {r2[0]['backend']}, want gloo "
+              "(two ranks share the one card)")
+        check([len(s["res_norms"]) for s in h1] == [len(s["res_norms"]) for s in h2],
+              "dist pod_run: Newton iteration counts differ")
+        its = lambda h: [k for s in h for k in s["ksp_its"]]
+        check(len(its(h1)) == len(its(h2)) and all(
+            abs(a - b) <= max(2, 0.02 * a) for a, b in zip(its(h1), its(h2))),
+            f"dist pod_run: KSP its {its(h2)} vs {its(h1)}")
+        t1, t2 = info_table(one), info_table(two)
+        check(len(t1) == len(t2), "dist pod_run: info.dat row counts differ")
+        worst = max(abs(a - b) / max(abs(a), 1e-30) for r, q in zip(t1, t2) for a, b in zip(r, q))
+        log(f"[dist pod_run] 2 ranks vs 1 process: Newton its {[len(s['res_norms']) for s in h2]}, "
+            f"KSP its {its(h2)} vs {its(h1)}, info.dat max rel dev {worst:.3e} (bound "
+            f"{POD_RTOL:g}); per KSP iteration {step_ms_per_its(h2):.4f} ms on 2 ranks vs "
+            f"{step_ms_per_its(h1):.4f} ms on 1 (two ranks sharing one card: not a scaling "
+            "figure)")
+        check(worst <= POD_RTOL, f"dist pod_run: info.dat rows deviate by {worst:.3e}")
+    with tempfile.TemporaryDirectory() as one, tempfile.TemporaryDirectory() as two:
+        h1 = launch_ranks("dist plastic 1 process", PLASTIC_5, 1, one)[0]["history"]
+        r2 = launch_ranks("dist plastic 2 ranks", PLASTIC_5, 2, two)
+        launches["dist_plastic_2ranks"] = {k: sum(r[k] for r in r2) for k in ("K1", "K2")}
+        bad = roundoff_failures(r2[0]["history"], h1)
+        log(f"[dist plastic] 2 ranks vs 1 process at f64: nl_gps "
+            f"{[s['nl_gps'] for s in r2[0]['history']]}, KSP its "
+            f"{[s['ksp_its'] for s in r2[0]['history']]} vs {[s['ksp_its'] for s in h1]}: "
+            + ("PASS" if not bad else f"FAIL {bad}"))
+        check(not bad, "dist plastic: 2 ranks outside the roundoff bounds")
+    if torch.cuda.device_count() >= 2:
+        with tempfile.TemporaryDirectory() as two:
+            r = launch_ranks("dist pod_run 2 ranks nccl", POD_RUN, 2, two)
+            check(r[0]["backend"] == "nccl", "dist nccl: the backend rule did not pick NCCL")
+    else:
+        log(f"[dist] the NCCL run (one card per rank) not made: {torch.cuda.device_count()} card")
+    return launches, k1_ms
+
+
+def step_ms_per_its(history):
+    """Milliseconds of step time per KSP iteration over the steps that
+    solved."""
+    steps = [s for s in history if s["ksp_its"]]
+    return 1e3 * sum(s["seconds"] for s in steps) / max(1, sum(sum(s["ksp_its"]) for s in steps))
+
+
+def roundoff_failures(got, want):
+    """tests/test_torch_golden.py's roundoff bounds, step by step: solves,
+    converged and yielded-GP counts exact, KSP its within 6, first |RES|
+    1e-7, force and f_trial_max 1e-5."""
+    bad = []
+    if len(got) != len(want):
+        return ["step count"]
+    for g, w in zip(got, want):
+        t = w["ts"]
+        if (len(g["ksp_its"]), g["converged"], g["nl_gps"]) != (
+                len(w["ksp_its"]), w["converged"], w["nl_gps"]):
+            bad.append(f"ts {t}: solves/converged/nl_gps")
+        if any(abs(a - b) > 6 for a, b in zip(g["ksp_its"], w["ksp_its"])):
+            bad.append(f"ts {t}: KSP its")
+        if not np.isclose(g["res_norms"][0], w["res_norms"][0], rtol=1e-7, atol=1e-12):
+            bad.append(f"ts {t}: first |RES|")
+        for k in ("force", "f_trial_max"):
+            if not np.isclose(g[k], w[k], rtol=1e-5, atol=1e-12):
+                bad.append(f"ts {t}: {k}")
+    return bad
+
+
 PHASES = ("k1", "k1v1", "k2", "goldens", "main", "solvers", "checkpoint", "profile",
-          "microfe", "fe2")
+          "microfe", "fe2", "dist")
 
 
 def main():
@@ -870,15 +1159,18 @@ def main():
     k1, k1_narrow = got["k1"]
     k1v1, v1_launches = got["k1v1"]
     fe2 = got["fe2"]
+    dist_launches, dist_k1_ms = got["dist"]
     # ``launches`` is the 128^3 J2 main path's count, as since the first
-    # slice; ``launches_by_path`` adds each FE² line's own count
-    by_path = lambda k: {"j2_128": got["main"][k], **{p: c[k] for p, c in fe2.items()}}
+    # slice; ``launches_by_path`` adds each FE² line's own count and each
+    # 2-rank line's (summed over its ranks)
+    by_path = lambda k: {"j2_128": got["main"][k], **{p: c[k] for p, c in fe2.items()},
+                         **{p: c[k] for p, c in dist_launches.items()}}
     kernels = [
         dict(name="stencil_spmv (K1)", route="cuda",
              source="macroc_tpu_torch/csrc/stencil_spmv.cu",
              replaces="macroc_tpu/ops/stencil_pallas.py:223",
              launches=got["main"]["K1"], launches_by_path=by_path("K1"),
-             **k1),
+             halo_rank_block_ms=dist_k1_ms, **k1),
         dict(name="assembly_fused (K2)", route="cuda",
              source="macroc_tpu_torch/csrc/assembly_fused.cu",
              replaces="macroc_tpu/ops/assembly_pallas.py:165",

@@ -17,6 +17,7 @@ matching MatZeroRowsColumns(A, ..., 1.0, NULL, NULL).
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -33,6 +34,10 @@ class BCData:
 
     mask: torch.Tensor      # (nx, ny, nz, 3) bool
     val_unit: torch.Tensor  # (nx, ny, nz, 3) dtype
+    # (27, 3, nx, ny, nz) bool: the mask at each stencil neighbour, given
+    # where neighbours lie beyond the tensor (a rank's block); None: the
+    # tensor is the whole grid and neighbour_mask_soa derives it
+    nbr_mask: Optional[torch.Tensor] = None
 
 
 def build_bc(
@@ -63,6 +68,29 @@ def build_bc(
     return BCData(
         mask=torch.as_tensor(mask, device=device),
         val_unit=torch.as_tensor(val, dtype=dtype, device=device),
+    )
+
+
+def build_bc_block(
+    grid: StructuredGrid3D, cfg: MacroConfig, node_shape, block, dtype: torch.dtype,
+    device: torch.device,
+) -> BCData:
+    """One rank's BCData: the global mask and values padded to
+    ``node_shape`` (padded nodes constrained to 0, as
+    ``macroc_tpu/problem.py:199-206``), cut to the slices ``block``, with
+    the neighbour mask taken from the global padded mask once here (the
+    mask is static, so no exchange is needed per Newton iteration)."""
+    bc0 = build_bc(grid, cfg, dtype, torch.device("cpu"))
+    real = (slice(0, grid.nx), slice(0, grid.ny), slice(0, grid.nz))
+    mask = torch.ones(tuple(node_shape) + (3,), dtype=torch.bool)
+    mask[real] = bc0.mask
+    val = torch.zeros(tuple(node_shape) + (3,), dtype=dtype)
+    val[real] = bc0.val_unit
+    nbr = neighbor_mask_soa(mask.permute(3, 0, 1, 2))[(slice(None), slice(None)) + tuple(block)]
+    return BCData(
+        mask=mask[tuple(block)].contiguous().to(device),
+        val_unit=val[tuple(block)].contiguous().to(device),
+        nbr_mask=nbr.contiguous().to(device),
     )
 
 
@@ -125,10 +153,11 @@ def apply_bc_stencil_soa(A_soa: torch.Tensor, bc: BCData) -> torch.Tensor:
     IN PLACE (the operator is 2 GB in f32 at 128^3; a copy per masking step
     would double the step's peak memory).  Returns A_soa."""
     mask = bc.mask.permute(3, 0, 1, 2)  # (3,nx,ny,nz)
+    nbr = neighbor_mask_soa(mask) if bc.nbr_mask is None else bc.nbr_mask
     # rows: A[o, d, :, p] = 0 where mask[d, p]
     A_soa.masked_fill_(mask[None, :, None], 0.0)
     # cols: A[o, :, e, p] = 0 where the o-neighbour of p has mask[e, .]
-    A_soa.masked_fill_(neighbor_mask_soa(mask)[:, None], 0.0)
+    A_soa.masked_fill_(nbr[:, None], 0.0)
     # unit diagonal at constrained dofs
     for d in range(3):
         A_soa[DIAG_OFFSET, d, d] += mask[d].to(A_soa.dtype)

@@ -3,53 +3,50 @@
 Takes the same flags as ``python -m macroc_tpu`` (``config.parse_cli``).
 ``MACROC_PLATFORM`` picks the device: ``cuda`` (the default; raises when no
 CUDA device is present) or ``cpu``, where every kernel runs its plain
-PyTorch version.  Flags whose code paths are not ported yet raise.
+PyTorch version.  ``MACROC_COORDINATOR``, ``MACROC_NUM_PROCESSES`` and
+``MACROC_PROCESS_ID`` make the process one rank of a domain-decomposed run
+(``parallel/distributed.py``); start one process per rank.  Flags whose
+code paths are not ported yet raise.
 """
 
 from __future__ import annotations
 
-import os
 import sys
 
 import torch
 
-from macroc_tpu_torch.config import MacroConfig, parse_cli
-from macroc_tpu_torch.driver import Simulation
+from macroc_tpu_torch.config import parse_cli
+from macroc_tpu_torch.driver import Simulation, unsupported  # noqa: F401 (re-export)
+from macroc_tpu_torch.parallel import distributed
 from macroc_tpu_torch.utils.runtime import setup_runtime
 
 
-def unsupported(cfg: MacroConfig) -> list:
-    """The reasons this config cannot run on the port yet (empty: it can)."""
-    procs = [p for p in (cfg.procs_x, cfg.procs_y, cfg.procs_z) if p is not None]
-    if any(p > 1 for p in procs):
-        return ["-da_processors_* > 1 (multi-GPU)"]
-    return []
-
-
 def device_from_env() -> torch.device:
-    plat = os.environ.get("MACROC_PLATFORM", "cuda")
-    if plat not in ("cuda", "cpu"):
-        raise ValueError(f"MACROC_PLATFORM must be cuda or cpu, got {plat!r}")
+    """MACROC_PLATFORM's device for this process: the CPU, or the rank's
+    card (``cuda:<rank % cards>``)."""
+    plat = distributed.platform_from_env()
     if plat == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device: macroc_tpu_torch runs on the GPU by default; set "
             "MACROC_PLATFORM=cpu to run the plain PyTorch versions on the CPU"
         )
-    return torch.device(plat)
+    return distributed.local_device(plat)
 
 
 def run(argv=None) -> dict:
-    """Parse flags, run the simulation, return Simulation.run()'s result."""
+    """Parse flags, run the simulation, return Simulation.run()'s result.
+    Brings up the process group first when the MACROC_* environment asks
+    for one, and takes it down at the end.  What is not ported for the
+    rank count raises NotImplementedError (``driver.unsupported``)."""
     setup_runtime()
-    device = device_from_env()
-    cfg = parse_cli(sys.argv[1:] if argv is None else argv)
-    missing = unsupported(cfg)
-    if missing:
-        raise NotImplementedError(
-            "not ported to macroc_tpu_torch yet (ROADMAP.md lists the "
-            "order): " + "; ".join(missing)
-        )
-    return Simulation(cfg, device).run()
+    started = distributed.maybe_initialize()
+    try:
+        device = device_from_env()
+        cfg = parse_cli(sys.argv[1:] if argv is None else argv)
+        return Simulation(cfg, device).run()
+    finally:
+        if started:
+            distributed.shutdown()
 
 
 def main(argv=None) -> int:

@@ -5,13 +5,12 @@ from macroc_tpu_torch.constitutive.elastic import ElasticEngine, elastic_matrix
 from macroc_tpu_torch.constitutive.j2 import J2Engine, J2State
 
 
-def make_engine(cfg, dtype: torch.dtype, device: torch.device):
-    """Engine factory from MacroConfig.
-
-    kind="auto" routes by the physics the flags describe: when the two
-    materials differ AND the micro geometry places material 2 somewhere,
-    only the micro-FE engine is faithful; otherwise the RVE is effectively
-    homogeneous and the closed-form J2 engine is exact."""
+def engine_kind(cfg) -> str:
+    """The engine cfg.constitutive names.  "auto" routes by the physics the
+    flags describe: when the two materials differ AND the micro geometry
+    places material 2 somewhere, only the micro-FE engine is faithful;
+    otherwise the RVE is effectively homogeneous and the closed-form J2
+    engine is exact."""
     kind = cfg.constitutive
     if kind == "auto":
         from macroc_tpu_torch.constitutive.microfe import material2_mask
@@ -20,6 +19,12 @@ def make_engine(cfg, dtype: torch.dtype, device: torch.device):
             material2_mask(cfg.micro_n, cfg.micro_type, cfg.micro_params).any()
         )
         kind = "microfe" if hetero else "j2"
+    return kind
+
+
+def make_engine(cfg, dtype: torch.dtype, device: torch.device):
+    """Engine factory from MacroConfig (``engine_kind``)."""
+    kind = engine_kind(cfg)
     if kind == "elastic":
         return ElasticEngine(cfg.micro_mat_1, dtype=dtype, device=device)
     if kind == "j2":
@@ -49,5 +54,6 @@ __all__ = [
     "J2Engine",
     "J2State",
     "elastic_matrix",
+    "engine_kind",
     "make_engine",
 ]

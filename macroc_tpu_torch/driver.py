@@ -10,6 +10,10 @@ saves (u, state) every that many steps and ``-resume`` continues from the
 newest checkpoint in ``-checkpoint_dir`` (``utils/checkpoint.py``, the JAX
 package's format); ``-profile_dir`` traces the time loop with
 ``torch.profiler``.
+
+Under a process group every rank runs the time loop on its block; rank 0
+alone prints the narrative and writes info.dat and gauss_evolution.dat
+(PetscPrintf semantics, ``macroc_tpu/driver.py:57``).
 """
 
 from __future__ import annotations
@@ -23,21 +27,55 @@ import torch
 
 from macroc_tpu_torch.config import BC_BENDING, BC_CIRCLE, MacroConfig
 from macroc_tpu_torch.io import GaussEvolutionWriter, InfoWriter, write_pvtu
+from macroc_tpu_torch.parallel import distributed
 from macroc_tpu_torch.fem.kernels import compute_strains
-from macroc_tpu_torch.forces import per_rank_nonlinear_counts_device
-from macroc_tpu_torch.problem import MacroProblem
+from macroc_tpu_torch.constitutive import engine_kind
+from macroc_tpu_torch.grid import make_grid
+from macroc_tpu_torch.parallel.mesh import padded_node_shape
+from macroc_tpu_torch.problem import MacroProblem, resolve_solver_plan_torch
 from macroc_tpu_torch.solve.cg import KSP_REASON_NAMES
 from macroc_tpu_torch.utils import checkpoint as ckpt
 from macroc_tpu_torch.utils.profiling import PhaseTimer, trace
 
 
+def unsupported(cfg: MacroConfig, world: int = 1) -> list:
+    """The reasons this config cannot run on the port yet over ``world``
+    ranks (empty: it can).  One process runs everything; more than one
+    rank does not run MG, the matrix-free operator, micro-FE, VTU output,
+    checkpoints or resume yet (ROADMAP.md items 15e-15f)."""
+    if world == 1:
+        return []
+    # "auto" resolves on the padded node shape, as the step does
+    plan = resolve_solver_plan_torch(cfg, padded_node_shape(make_grid(cfg, world)), "cpu")
+    checks = [
+        (plan["pc_type"] == "mg",
+         "-pc_type mg" if cfg.pc_type == "mg" else "-pc_type auto (MG)"),
+        (cfg.operator == "matfree", "-operator matfree"),
+        (engine_kind(cfg) == "microfe", "micro-FE (FE²)"),
+        (cfg.vtu_freq > 0, "-vtu_freq > 0"),
+        (cfg.checkpoint_freq > 0, "-checkpoint_freq > 0"),
+        (cfg.resume, "-resume"),
+    ]
+    return [f"{what} under {world} ranks" for bad, what in checks if bad]
+
+
 class Simulation:
     def __init__(self, cfg: MacroConfig, device,
                  log: Optional[Callable[[str], None]] = None):
+        missing = unsupported(cfg, distributed.world())
+        if missing:
+            raise NotImplementedError(
+                "not ported to macroc_tpu_torch yet (ROADMAP.md lists the "
+                "order): " + "; ".join(missing)
+            )
         self.cfg = cfg
         self.problem = MacroProblem(cfg, device)
         self.grid = self.problem.grid
-        self._log = log or (lambda s: print(s, end="", flush=True))
+        # rank-0 logging and files
+        self.primary = distributed.is_primary()
+        if log is None:
+            log = (lambda s: print(s, end="", flush=True)) if self.primary else (lambda s: None)
+        self._log = log
 
     def vtu_fields(self, u, diag):
         """Element-level VTU fields on the host (the reference's *wg sum and
@@ -143,11 +181,13 @@ class Simulation:
         p.timer = timer if cfg.log_phases else None
         sync = p.device.type == "cuda"
         # a resumed run appends, so the files stay a complete history
-        info = InfoWriter(os.path.join(cfg.output_dir, "info.dat"),
-                          append=start_step > 0)
-        gauss = GaussEvolutionWriter(
-            os.path.join(cfg.output_dir, "gauss_evolution.dat"), append=start_step > 0
-        )
+        info = gauss = None
+        if self.primary:
+            info = InfoWriter(os.path.join(cfg.output_dir, "info.dat"),
+                              append=start_step > 0)
+            gauss = GaussEvolutionWriter(
+                os.path.join(cfg.output_dir, "gauss_evolution.dat"), append=start_step > 0
+            )
         vtu_encoding = cfg.vtu_encoding
         if vtu_encoding == "auto":
             vtu_encoding = "appended" if self.grid.nnodes > 100_000 else "ascii"
@@ -166,9 +206,7 @@ class Simulation:
                             torch.cuda.synchronize()
                     seconds = time.perf_counter() - t0
                     self._log_newton(diag)
-                    per_rank = per_rank_nonlinear_counts_device(
-                        diag.non_linear, self.grid
-                    ).cpu().numpy()
+                    per_rank = p.nonlinear_counts(diag.non_linear)
                     nl_gps = int(per_rank.sum())
                     L(f"Non-Linear Gauss points : {nl_gps}\n")
                     L(f"F_trial_max             : {diag.f_trial_max:e}\n")
@@ -177,10 +215,11 @@ class Simulation:
                             f"WARNING: {diag.micro_unconverged} micro RVE solves hit "
                             "the Newton cap above tolerance\n"
                         )
-                    gauss.write_row(time_s, per_rank)
-                    info.write_row(
-                        time_s, time_s * cfg.dt, U, diag.force, diag.f_trial_max, nl_gps
-                    )
+                    if self.primary:
+                        gauss.write_row(time_s, per_rank)
+                        info.write_row(
+                            time_s, time_s * cfg.dt, U, diag.force, diag.f_trial_max, nl_gps
+                        )
                     history.append(
                         dict(
                             ts=time_s,
@@ -212,8 +251,9 @@ class Simulation:
                         with timer.phase("checkpoint"):
                             ckpt.save(cfg.checkpoint_dir, time_s + 1, (u, state))
         finally:
-            info.close()
-            gauss.close()
+            if self.primary:
+                info.close()
+                gauss.close()
         t2 = time.time()
         L(
             "\n\n"

@@ -27,13 +27,13 @@ Channel orders:
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from macroc_tpu_torch.fem.element import DIM, NGP, NODE_OFFSETS, NPE, NVOI, b_from_dsh
-from macroc_tpu_torch.fem.kernels import N_STENCIL, offset_index
+from macroc_tpu_torch.fem.kernels import N_STENCIL, assemble_stencil_soa, offset_index
 
 N_KE = NPE * DIM * NPE * DIM  # 576 element-stiffness channels
 N_A = N_STENCIL * DIM * DIM   # 243 stencil entries per node
@@ -144,7 +144,8 @@ def assemble_stencil_soa_plain(
 def b_dsh(B: torch.Tensor) -> np.ndarray:
     """The (8, 8, 3) shape derivatives that B (8, 6, 8, 3) holds; raises
     ValueError unless B has exactly ``b_matrix``'s pattern (K2 contracts
-    with that pattern, not with B)."""
+    with that pattern, not with B).  It reads B to the host: callers that
+    assemble repeatedly take it once and pass it to K2's wrapper."""
     if tuple(B.shape) != (NGP, NVOI, NPE, DIM):
         raise ValueError(f"B must be (8, 6, 8, 3), got {tuple(B.shape)}")
     Bh = B.detach().to("cpu", torch.float64).numpy()
@@ -192,21 +193,35 @@ def _fused_cuda(ctan: torch.Tensor, dsh: np.ndarray, wg: float,
     return A
 
 
+def assemble_stencil_slab(
+    ctan: torch.Tensor, B: torch.Tensor, wg: float,
+    grid_shape: Tuple[int, int, int], dsh: Optional[np.ndarray] = None,
+) -> torch.Tensor:
+    """The plain slab form (``fem/kernels.py::assemble_stencil_soa``) under
+    the assemblers' common signature; it reads B itself, so ``dsh`` goes
+    unused."""
+    return assemble_stencil_soa(ctan, B, wg, grid_shape)
+
+
 def assemble_stencil_soa_kernel(
     ctan: torch.Tensor, B: torch.Tensor, wg: float,
-    grid_shape: Tuple[int, int, int],
+    grid_shape: Tuple[int, int, int], dsh: Optional[np.ndarray] = None,
 ) -> torch.Tensor:
     """Stencil assembly A_soa (27,3,3,nx,ny,nz) from per-GP tangents ctan
     (nx-1,ny-1,nz-1,8,6,6): kernel K2 on a CUDA tensor, the plain version
     on a CPU tensor.  B must have ``b_matrix``'s pattern (ValueError).
-    Counts kernel launches in ``assemble_stencil_soa_kernel.launches``."""
+    ``dsh`` is B's shape derivatives when the caller holds them
+    (``b_dsh(B)``, or the ``shape_derivatives`` B was made from); None
+    reads them from B and checks its pattern on every call.  Counts kernel
+    launches in ``assemble_stencil_soa_kernel.launches``."""
     nx, ny, nz = grid_shape
     if tuple(ctan.shape) != (nx - 1, ny - 1, nz - 1, NGP, NVOI, NVOI):
         raise ValueError(
             f"ctan must be (nx-1,ny-1,nz-1,8,6,6) for grid {grid_shape}, "
             f"got {tuple(ctan.shape)}"
         )
-    dsh = b_dsh(B)
+    if dsh is None:
+        dsh = b_dsh(B)
     if ctan.is_cuda:
         A = _fused_cuda(ctan, dsh, wg, grid_shape)
         assemble_stencil_soa_kernel.launches += 1

@@ -21,6 +21,16 @@ Semantics kept exactly (macroc_tpu/problem.py:13-22):
 GP arrays (state, stress, flags) are stored at node shape + (8,): the
 trailing slot per dim is an inactive element that always sees zero strain,
 the layout of the JAX package, so its state carries across unchanged.
+
+Under a process group of N ranks (``parallel/distributed.py``) the grid is
+decomposed as DMDA would (``make_grid(cfg, N)``), the node box is padded to
+multiples of the rank grid (pads Dirichlet-0, padded elements inactive) and
+each rank holds its block of u, the state and the GP fields
+(``parallel/mesh.py``): strains from the halo-exchanged u, a per-rank
+homogenize, the residual folded back onto its owners, K2 per rank with its
+extra plane folded on, K1 on the exchanged x, and all-reduced dots, norms
+and diagnostics (``macroc_tpu/problem.py:160-309, 399-413``).  MG, the
+matrix-free operator and micro-FE are one-process only for now.
 """
 
 from __future__ import annotations
@@ -42,18 +52,29 @@ from macroc_tpu_torch.fem.element import b_for
 from macroc_tpu_torch.fem.kernels import (
     assemble_diagonal,
     assemble_residual,
-    assemble_stencil_soa,
     compute_strains,
     matfree_matvec,
 )
-from macroc_tpu_torch.forces import calc_force
-from macroc_tpu_torch.ops.assembly import assemble_stencil_soa_kernel
+from macroc_tpu_torch.forces import calc_force, per_rank_nonlinear_counts_device
+from macroc_tpu_torch.ops.assembly import (
+    assemble_stencil_slab,
+    assemble_stencil_soa_kernel,
+    b_dsh,
+)
 from macroc_tpu_torch.ops.stencil_spmv import (
     stencil_matvec,
     stencil_matvec_soa,
     x_from_soa,
     x_to_soa,
 )
+from macroc_tpu_torch.parallel.distributed import Comm
+from macroc_tpu_torch.parallel.halo import (
+    assemble_stencil_local,
+    halo_exchange,
+    halo_fold_add,
+    stencil_matvec_local,
+)
+from macroc_tpu_torch.parallel.mesh import RankMesh
 from macroc_tpu_torch.solve.cg import cg_solve
 from macroc_tpu_torch.solve.gmres import gmres_solve
 from macroc_tpu_torch.solve.mg import build_hierarchy, make_mg_preconditioner
@@ -73,7 +94,8 @@ MG_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, **DTYPES}
 class StepDiagnostics:
     """Per-time-step diagnostics; Newton/KSP records are host arrays sized
     by newton_max_its, the per-GP fields device tensors on the real
-    element box."""
+    element box (on a rank: its block of element slots, the inactive ones
+    zero, False and -inf).  Scalars are the global values on every rank."""
 
     res_norms: np.ndarray     # (max_its+1,) |RES| per Newton iteration (nan-padded)
     ksp_its: np.ndarray       # (max_its,) KSP iteration counts per solve
@@ -118,34 +140,49 @@ def resolve_solver_plan_torch(cfg: MacroConfig, node_shape, device) -> dict:
 
 
 _OPERATORS = {"stencil_cuda": stencil_matvec, "stencil": stencil_matvec_soa}
-_ASSEMBLERS = {"cuda": assemble_stencil_soa_kernel, "slab": assemble_stencil_soa}
+_ASSEMBLERS = {"cuda": assemble_stencil_soa_kernel, "slab": assemble_stencil_slab}
 
 
 class MacroProblem:
-    """Grid, config, BCs and constitutive engine on one device."""
+    """Grid, config, BCs and constitutive engine of this process: the
+    whole problem on one process, the rank's block under a process group
+    (``self.mesh``)."""
 
     def __init__(self, cfg: MacroConfig, device, grid: Optional[StructuredGrid3D] = None):
         if cfg.dtype not in DTYPES:
             raise ValueError(f"dtype must be float32 or float64, got {cfg.dtype!r}")
         self.cfg = cfg
         self.device = torch.device(device)
-        self.grid = grid or make_grid(cfg, 1)
-        if self.grid.nproc != 1:
-            raise NotImplementedError(
-                "macroc_tpu_torch runs on one device (multi-GPU is later "
-                "work, ROADMAP.md)"
-            )
+        self.comm = Comm(self.device)
+        self.grid = grid or make_grid(cfg, self.comm.world)
         self.dtype = DTYPES[cfg.dtype]
         g = self.grid
-        self.B = torch.as_tensor(
-            b_for(g.spacing, cfg.ref_b_quirk), dtype=self.dtype, device=self.device
-        )
+        B = torch.as_tensor(b_for(g.spacing, cfg.ref_b_quirk))
+        # B's shape derivatives for K2, read (and B's pattern checked) once
+        self.dsh = b_dsh(B)
+        self.B = B.to(self.dtype).to(self.device)
         self.engine = make_engine(cfg, self.dtype, self.device)
         self.real_shape = (g.nx, g.ny, g.nz)
-        self.node_shape = self.real_shape
         self.real_elem_shape = (g.nx - 1, g.ny - 1, g.nz - 1)
+        if g.nproc == 1:
+            self.mesh = None
+            self.node_shape = self.real_shape
+            self.origin = (0, 0, 0)
+            self.local_shape = self.node_shape
+            self.bc = bc_mod.build_bc(g, cfg, self.dtype, self.device)
+        else:
+            self.mesh = RankMesh(g, self.comm)
+            self.node_shape = self.mesh.node_shape  # padded to the rank grid
+            self.origin = self.mesh.start
+            self.local_shape = self.mesh.block
+            self.bc = bc_mod.build_bc_block(g, cfg, self.node_shape, self.mesh.slices(),
+                                            self.dtype, self.device)
+            active = np.zeros(self.node_shape, dtype=bool)
+            active[tuple(slice(0, n) for n in self.real_elem_shape)] = True
+            # the rank's element slots that hold real elements
+            self.elem_mask = torch.as_tensor(self.mesh.local(active)).contiguous().to(
+                self.device)
         self.elem_shape = self.node_shape  # GP storage: one inactive slot per dim
-        self.bc = bc_mod.build_bc(g, cfg, self.dtype, self.device)
         # a PhaseTimer (utils/profiling.py) to book the step's phases to
         self.timer = None
 
@@ -157,9 +194,10 @@ class MacroProblem:
         return u[:nx, :ny, :nz]
 
     def init_fields(self):
-        """(u, constitutive state) — zero displacement, fresh internal vars."""
-        u = torch.zeros(self.node_shape + (3,), dtype=self.dtype, device=self.device)
-        return u, self.engine.init_state(self.elem_shape + (8,))
+        """(u, constitutive state) of this process's block — zero
+        displacement, fresh internal vars."""
+        u = torch.zeros(self.local_shape + (3,), dtype=self.dtype, device=self.device)
+        return u, self.engine.init_state(self.local_shape + (8,))
 
     def _pad_gp(self, arr: torch.Tensor) -> torch.Tensor:
         """Element-kernel output (n-1 dims) -> GP storage layout (node dims)."""
@@ -170,9 +208,25 @@ class MacroProblem:
         """GP storage layout -> element-kernel input (n-1 dims)."""
         return arr[:-1, :-1, :-1]
 
+    def _real(self, arr: torch.Tensor, fill=0) -> torch.Tensor:
+        """The real elements of a GP field: the cropped view on one process;
+        on a rank, its block with the inactive slots set to ``fill``."""
+        if self.mesh is None:
+            return self._crop_gp(arr)
+        m = self.elem_mask.reshape(self.elem_mask.shape + (1,) * (arr.ndim - 3))
+        return arr.masked_fill(~m, fill)
+
+    def nonlinear_counts(self, non_linear: torch.Tensor) -> np.ndarray:
+        """The gauss_evolution.dat row: non-linear GP counts per DMDA rank
+        box, summed over the ranks (a collective under a process group)."""
+        counts = per_rank_nonlinear_counts_device(non_linear, self.grid, self.origin)
+        return self.comm.sum(counts).cpu().numpy()
+
     def residual(self, u: torch.Tensor, state: Any):
         """(b, norm, hom): negated, BC-zeroed residual, its L2 norm (a 0-dim
         tensor) and the homogenize result."""
+        if self.mesh is not None:
+            return self._residual_local(u, state)
         # the inactive trailing element slots get zero strain from the pad,
         # so their state stays pristine
         eps = self._pad_gp(compute_strains(u, self.B))
@@ -184,11 +238,36 @@ class MacroProblem:
         b = -bc_mod.apply_bc_on_res(f, self.bc)
         return b, torch.sqrt(torch.sum(b * b)), hom
 
+    def _residual_local(self, u: torch.Tensor, state: Any):
+        """residual() on this rank's block (macroc_tpu/problem.py:256-296):
+        strains of the element slots from the halo-exchanged u, a
+        homogenize with no communication, the element forces scattered onto
+        the block grown by one node per face and folded back onto their
+        owners; |RES| from the all-reduced sum of squares."""
+        m = self.mesh
+        bx, by, bz = m.block
+        ue = halo_exchange(u, m, dims=(0, 1, 2))
+        # element slot i of the block has nodes i, i+1: elements i+1 of ue
+        eps = compute_strains(ue, self.B)[1:1 + bx, 1:1 + by, 1:1 + bz]
+        # inactive (grid-padding, trailing) element slots see zero strain,
+        # so their state stays pristine
+        eps = self._real(eps)
+        with self._phase("homogenize"):
+            hom = self.engine.homogenize(eps, state)
+        f = assemble_residual(self._real(hom.stress), self.B, self.grid.wg,
+                              (bx + 1, by + 1, bz + 1))
+        # onto local nodes -1 .. b: the halo planes go back to their owners
+        f = halo_fold_add(F.pad(f, (0, 0, 1, 0, 1, 0, 1, 0)), m, dims=(0, 1, 2))
+        b = -bc_mod.apply_bc_on_res(f, self.bc)
+        return b, torch.sqrt(self.comm.sum(torch.sum(b * b))), hom
+
     def _krylov(self, mv, b: torch.Tensor, M):
-        """The configured Krylov method (-ksp_type) on mv, b and M."""
+        """The configured Krylov method (-ksp_type) on mv, b and M; its
+        dots all-reduced over the ranks under a process group."""
         cfg = self.cfg
         common = dict(rtol=cfg.ksp_rtol, abstol=cfg.ksp_abstol, dtol=cfg.ksp_dtol,
-                      maxits=cfg.ksp_maxits)
+                      maxits=cfg.ksp_maxits,
+                      allreduce=None if self.mesh is None else self.comm.sum)
         with self._phase("ksp_solve"):
             if cfg.ksp_type == "cg":
                 return cg_solve(mv, b, M, record_trace=cfg.ksp_monitor, **common)
@@ -220,19 +299,32 @@ class MacroProblem:
 
     def linear_solve(self, ctan: torch.Tensor, b: torch.Tensor):
         """Assemble the BC-eliminated operator from per-GP tangents ctan
-        (element shape), or wrap the matrix-free one, and run the Krylov
-        method on it.  Returns a KSPResult with x in node layout
-        (nx,ny,nz,3)."""
+        (element shape; on a rank its node-shaped block, inactive slots
+        zero), or wrap the matrix-free one, and run the Krylov method on it.
+        Returns a KSPResult with x in node layout (nx,ny,nz,3), on a rank
+        its block."""
         cfg = self.cfg
         plan = resolve_solver_plan_torch(cfg, self.node_shape, self.device)
+        if self.mesh is not None and (plan["operator"] == "matfree" or plan["pc_type"] == "mg"):
+            raise NotImplementedError(
+                f"-operator {plan['operator']} -pc_type {plan['pc_type']} runs on one "
+                "process only; under more than one rank it is not ported yet "
+                "(ROADMAP.md item 15e)"
+            )
         if plan["operator"] == "matfree":
             return self._matfree_solve(ctan, b, plan["pc_type"])
-        matvec = _OPERATORS[plan["operator"]]
         assemble = _ASSEMBLERS[plan["assembly"]]
         with self._phase("assembly"):
-            A_soa = bc_mod.apply_bc_stencil_soa(
-                assemble(ctan, self.B, self.grid.wg, self.node_shape), self.bc
-            )
+            if self.mesh is None:
+                A_soa = assemble(ctan, self.B, self.grid.wg, self.node_shape, dsh=self.dsh)
+            else:
+                A_soa = assemble_stencil_local(ctan, self.B, self.grid.wg, self.mesh,
+                                               partial(assemble, dsh=self.dsh))
+            A_soa = bc_mod.apply_bc_stencil_soa(A_soa, self.bc)
+        if self.mesh is None:
+            matvec = partial(_OPERATORS[plan["operator"]], A_soa)
+        else:
+            matvec = partial(stencil_matvec_local, A_soa, mesh=self.mesh)
         with self._phase("precond_setup"):
             pc_type = plan["pc_type"]
             if pc_type == "jacobi":
@@ -260,7 +352,7 @@ class MacroProblem:
                     nu=cfg.mg_nu,
                     omega=cfg.mg_omega,
                     coarse_sweeps=cfg.mg_coarse_sweeps,
-                    mv_for=lambda level: matvec,
+                    mv_for=lambda level: _OPERATORS[plan["operator"]],
                     coarse_direct=cfg.mg_coarse_direct,
                     transfer_order=cfg.mg_transfer_order or None,
                     dtype=self.dtype,
@@ -271,7 +363,7 @@ class MacroProblem:
                 raise ValueError(
                     f"unknown pc_type '{cfg.pc_type}' (auto|none|jacobi|bjacobi|mg)"
                 )
-        res = self._krylov(partial(matvec, A_soa), x_to_soa(b), M)
+        res = self._krylov(matvec, x_to_soa(b), M)
         return res._replace(x=x_from_soa(res.x))
 
     def _mg_dtype(self) -> torch.dtype:
@@ -310,15 +402,16 @@ class MacroProblem:
                 b, norm, hom = self.residual(u, state)
                 norm = float(norm)
             if hom.unconverged is not None:
-                unconv += int(self._crop_gp(hom.unconverged).sum())
+                unconv += int(self.comm.sum(self._real(hom.unconverged, False).sum()))
             if nhom == 0:
                 norm0 = norm
             res_norms[nhom] = norm
             nhom += 1
             done = norm < cfg.newton_min_tol or norm < norm0 * cfg.newton_rel_tol
             if not done:
-                # the cropped view holds exactly the active elements
-                res = self.linear_solve(self._crop_gp(hom.ctan), b)
+                # exactly the active elements: the cropped view, or on a
+                # rank the node-shaped block with zero inactive tangents
+                res = self.linear_solve(self._real(hom.ctan), b)
                 u = u + res.x
                 ksp_its[it], ksp_rnorms[it], ksp_reasons[it] = (
                     res.its, res.rnorm, res.reason,
@@ -330,17 +423,19 @@ class MacroProblem:
             last = (hom.stress, hom.non_linear, hom.f_trial, hom.cost)
             del hom, b
 
-        nex, ney, nez = self.real_elem_shape
         if last is None:  # newton_max_its == 0: nothing was homogenized
-            gp = dict(size=(nex, ney, nez, 8), device=self.device)
+            gp = dict(size=self.local_shape + (8,), device=self.device)
             last = (
                 torch.zeros(gp["size"] + (6,), dtype=self.dtype, device=self.device),
                 torch.zeros(**gp, dtype=torch.bool),
                 torch.full(fill_value=-np.inf, dtype=self.dtype, **gp),
                 torch.zeros(**gp, dtype=self.dtype),
             )
-        stress, non_linear, f_trial, cost = (a[:nex, :ney, :nez] for a in last)
-        f_trial_max = float(torch.max(f_trial))
+        # the real element box (on a rank: its block, inactive slots
+        # neutral for the sums and the max)
+        stress, non_linear, f_trial, cost = (
+            self._real(a, fill) for a, fill in zip(last, (0, False, -np.inf, 0)))
+        f_trial_max = float(self.comm.max(torch.max(f_trial)))
         diag = StepDiagnostics(
             res_norms=res_norms,
             ksp_its=ksp_its,
@@ -349,7 +444,7 @@ class MacroProblem:
             n_homogenize=nhom,
             n_solves=it,
             converged=done,
-            force=float(calc_force(stress, self.grid, cfg)),
+            force=float(self.comm.sum(calc_force(stress, self.grid, cfg, self.origin))),
             f_trial_max=f_trial_max,
             non_linear=non_linear,
             cost=cost,
@@ -361,22 +456,31 @@ class MacroProblem:
 
 
 def fields_from_numpy(u: np.ndarray, eps_p: np.ndarray, alpha: np.ndarray,
-                      device, micro_u: Optional[np.ndarray] = None):
+                      device, micro_u: Optional[np.ndarray] = None,
+                      mesh: Optional[RankMesh] = None):
     """The JAX package's (u, state) as numpy — u (nx,ny,nz,3) and the
     state's leaves at node_shape+(8,...) — as the port's tensors: a J2State
     from eps_p (..,6) and alpha, or, with ``micro_u``, a MicroState from
-    the flat micro eps_p, alpha and u."""
+    the flat micro eps_p, alpha and u.  With ``mesh`` (a rank of an
+    N-process run, ``MacroProblem.mesh``) the arrays are the JAX N-device
+    run's global ones and the rank takes its block."""
     dev = torch.device(device)
-    t = lambda a: torch.tensor(np.asarray(a), device=dev)
+    if mesh is not None and micro_u is not None:
+        raise NotImplementedError("a MicroState per rank is not ported yet "
+                                  "(ROADMAP.md item 15f)")
+    cut = (lambda a: a) if mesh is None else mesh.local
+    t = lambda a: torch.tensor(np.ascontiguousarray(cut(np.asarray(a))), device=dev)
     if micro_u is None:
         return t(u), J2State(eps_p=t(eps_p), alpha=t(alpha))
     return t(u), MicroState(eps_p=t(eps_p), alpha=t(alpha), u=t(micro_u))
 
 
-def fields_to_numpy(u: torch.Tensor, state):
+def fields_to_numpy(u: torch.Tensor, state, mesh: Optional[RankMesh] = None):
     """(u, eps_p, alpha) numpy arrays in the JAX package's layout, plus the
-    micro displacement for a MicroState: (u, eps_p, alpha, micro_u)."""
-    h = lambda a: a.detach().cpu().numpy()
+    micro displacement for a MicroState: (u, eps_p, alpha, micro_u).  With
+    ``mesh`` the ranks' blocks are gathered into the global arrays, on
+    every rank (a collective)."""
+    h = (lambda a: a.detach().cpu().numpy()) if mesh is None else mesh.gather
     out = (h(u), h(state.eps_p), h(state.alpha))
     return out + (h(state.u),) if isinstance(state, MicroState) else out
 
@@ -399,11 +503,11 @@ def run_summary(cfg: MacroConfig, device) -> dict:
                 ksp_its=[int(v) for v in d.ksp_its[:nsol]],
                 force=d.force,
                 f_trial_max=d.f_trial_max,
-                nl_gps=int(d.non_linear.sum()),
+                nl_gps=int(p.nonlinear_counts(d.non_linear).sum()),
                 converged=d.converged,
             )
         )
-    u_np = p.unpad_u(u).cpu().numpy()
+    u_np = p.unpad_u(u.cpu().numpy() if p.mesh is None else p.mesh.gather(u))
     return dict(
         steps=steps,
         u_norm=float(np.linalg.norm(u_np)),

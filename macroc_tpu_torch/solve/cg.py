@@ -10,6 +10,12 @@ of ``macroc_tpu/solve/cg.py``).
 The convergence test runs on the host every iteration (one device sync per
 iteration), so iteration counts are exact.
 
+``allreduce`` makes the solve distributed: each rank holds its block of the
+vectors, and every inner product is a local sum all-reduced over the ranks
+(the only collectives of the loop; matvec and precond do their own halo
+work).  The two dots after each update go in one 2-element all-reduce.
+Every branch reads all-reduced values only, so all ranks take it alike.
+
 ``cg_solve_batched`` solves a batch of independent systems with the
 semantics of ``jax.vmap(cg_solve)``: every member has its own dots, rnorm_0,
 tolerance, reason and count, and a member that has stopped keeps its
@@ -52,6 +58,10 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.sum(a * b)
 
 
+def _identity(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
 def _reason_t(rnorm, tol, abstol: float, div):
     """_reason on per-member tensors."""
     conv = torch.where(rnorm <= abstol, KSP_CONVERGED_ATOL, KSP_CONVERGED_RTOL)
@@ -77,16 +87,24 @@ def cg_solve(
     maxits: int = 10000,
     norm_type: str = "preconditioned",
     record_trace: bool = False,
+    allreduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> KSPResult:
-    """Solve A x = b by PCG; matvec/precond map like-shaped tensors."""
+    """Solve A x = b by PCG; matvec/precond map like-shaped tensors.
+    ``allreduce`` sums a tensor of per-rank partial sums over the ranks
+    (None: one process)."""
     if precond is None:
         precond = lambda r: r
+    reduce = allreduce or _identity
     use_pnorm = norm_type == "preconditioned"
+
+    def dots(r, z):
+        """(r.z, monitored norm squared), all-reduced together."""
+        return reduce(torch.stack([_dot(r, z), _dot(z, z) if use_pnorm else _dot(r, r)]))
 
     r = b.clone()  # x0 = 0
     z = precond(r)
-    rz = _dot(r, z)
-    rnorm0 = math.sqrt(float(_dot(z, z) if use_pnorm else _dot(r, r)))
+    rz, nn = dots(r, z)
+    rnorm0 = math.sqrt(float(nn))
     x = torch.zeros_like(b)
     p = z
 
@@ -99,16 +117,16 @@ def cg_solve(
     its = 0
     while reason == 0 and its < maxits:
         q = matvec(p)
-        alpha = rz / _dot(p, q)
+        alpha = rz / reduce(_dot(p, q))
         x += alpha * p
         # not in place: the identity preconditioner returns r itself, so
         # z and p may alias it
         r = r - alpha * q
         z = precond(r)
-        rz_new = _dot(r, z)
+        rz_new, nn = dots(r, z)
         p = z + (rz_new / rz) * p
         rz = rz_new
-        rnorm = math.sqrt(float(_dot(z, z) if use_pnorm else _dot(r, r)))
+        rnorm = math.sqrt(float(nn))
         its += 1
         reason = _reason(rnorm, tol, abstol, div)
         if trace is not None:

@@ -15,12 +15,15 @@ per-iteration convergence test.  The JAX code runs all ``restart`` steps of
 a cycle and masks those after convergence; masked steps change nothing, so
 a cycle here stops at the step that set a reason.  A reason, DIVERGED_ITS
 included, is set inside a cycle, at the step where ``its + 1 >= maxits``.
+
+``allreduce``, as in ``cg_solve``, makes the solve distributed: the CGS2
+projections and the norms are local sums all-reduced over the ranks.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -62,6 +65,7 @@ def gmres_solve(
     maxits: int = 10000,
     restart: int = 30,
     record_trace: int = 0,
+    allreduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> KSPResult:
     """Solve A x = b by left-preconditioned restarted GMRES(restart).
 
@@ -82,8 +86,15 @@ def gmres_solve(
     def A(v):
         return matvec(v.reshape(shape)).reshape(-1)
 
+    reduce = allreduce or (lambda t: t)
+
+    def norm(v):
+        if allreduce is None:
+            return torch.linalg.vector_norm(v)
+        return torch.sqrt(allreduce(torch.sum(v * v)))
+
     b_flat = b.reshape(-1)
-    rnorm0 = npdt.type(torch.linalg.vector_norm(M(b_flat)).item())
+    rnorm0 = npdt.type(norm(M(b_flat)).item())
     tol = max(rtol * rnorm0, abstol)
     div = dtol * rnorm0
     reason = 0
@@ -101,7 +112,7 @@ def gmres_solve(
         # a cycle restarts from the true preconditioned residual; rnorm
         # keeps the last estimate until the first step of the cycle
         r = M(b_flat - A(x))
-        beta = npdt.type(torch.linalg.vector_norm(r).item())
+        beta = npdt.type(norm(r).item())
         V = torch.zeros((m + 1, N), dtype=dtype, device=dev)
         if beta > tiny:
             V[0] = r / float(beta)
@@ -114,12 +125,12 @@ def gmres_solve(
         for j in range(m):
             w = M(A(V[j]))
             # CGS2: rows > j of V are zero and contribute nothing
-            h = V @ w
+            h = reduce(V @ w)
             w = w - V.T @ h
-            h2 = V @ w
+            h2 = reduce(V @ w)
             w = w - V.T @ h2
             h = h + h2
-            hnext_t = torch.linalg.vector_norm(w)
+            hnext_t = norm(w)
             hcol = torch.cat([h, hnext_t.reshape(1)]).cpu().numpy()
             hnext = hcol[m + 1]
             hcol = hcol[:m + 1].copy()

@@ -26,13 +26,9 @@ import numpy as np
 import torch
 
 from macroc_tpu_torch import bc as bc_mod
-from macroc_tpu_torch.fem.element import b_matrix
-from macroc_tpu_torch.fem.kernels import (
-    DIAG_OFFSET,
-    STENCIL_OFFSETS,
-    assemble_stencil_soa,
-    offset_index,
-)
+from macroc_tpu_torch.fem.element import b_matrix, shape_derivatives
+from macroc_tpu_torch.fem.kernels import DIAG_OFFSET, STENCIL_OFFSETS, offset_index
+from macroc_tpu_torch.ops.assembly import assemble_stencil_slab
 from macroc_tpu_torch.ops.stencil_spmv import stencil_matvec_soa
 
 
@@ -266,9 +262,11 @@ def build_hierarchy(
     equals (8 wg0) x the true-FEM operator of a unit-spacing grid, so the
     hierarchy rediscretizes on a virtual spacing that starts at (1,1,1) and
     doubles along coarsened dims.  ``A0_soa`` reuses an already assembled
-    fine operator; ``assemble_fn`` is the per-level stencil assembler."""
+    fine operator; ``assemble_fn(ctan, B, wg, shape, dsh=)`` is the
+    per-level stencil assembler, handed the shape derivatives its level's B
+    is made of (K2's wrapper then reads no B)."""
     if assemble_fn is None:
-        assemble_fn = assemble_stencil_soa
+        assemble_fn = assemble_stencil_slab
     levels: List[MGLevel] = []
     dtype, device = ctan.dtype, ctan.device
     cur_ctan = ctan
@@ -290,7 +288,7 @@ def build_hierarchy(
         else:
             B = torch.as_tensor(b_matrix(cur_spacing), dtype=dtype, device=device)
             A_soa = bc_mod.apply_bc_stencil_soa(
-                assemble_fn(cur_ctan, B, wg, shape),
+                assemble_fn(cur_ctan, B, wg, shape, dsh=shape_derivatives(cur_spacing)),
                 bc_mod.BCData(
                     mask=cur_mask.permute(1, 2, 3, 0),
                     val_unit=torch.zeros(shape + (3,), dtype=dtype, device=device),

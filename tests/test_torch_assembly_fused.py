@@ -234,9 +234,9 @@ def test_main_path_ctan_passes_the_layout_check(monkeypatch):
     seen = []
     slab = tproblem._ASSEMBLERS["slab"]
 
-    def spy(ctan, B, wg, shape):
+    def spy(ctan, B, wg, shape, dsh=None):
         seen.append(ctan)
-        return slab(ctan, B, wg, shape)
+        return slab(ctan, B, wg, shape, dsh=dsh)
 
     monkeypatch.setitem(tproblem._ASSEMBLERS, "slab", spy)
     cfg = MacroConfig(nx=9, ny=5, nz=7, lx=2.0, ly=2.0, lz=2.0, bc_type=0, pc_type="mg",
@@ -250,3 +250,35 @@ def test_main_path_ctan_passes_the_layout_check(monkeypatch):
         asm.check_fused_layout(seen[0].transpose(4, 5))
     with pytest.raises(ValueError, match="stride"):
         asm.check_fused_layout(seen[0].transpose(1, 2))
+
+
+def test_b_is_read_once_not_per_assembly(monkeypatch):
+    """K2's wrapper reads B to the host (``b_dsh``) only when no dsh is
+    passed; MacroProblem takes it once, and build_hierarchy hands each MG
+    level the shape derivatives its B is made of, which equal b_dsh of
+    that B."""
+    from macroc_tpu_torch.fem.element import shape_derivatives
+    from macroc_tpu_torch.solve.mg import build_hierarchy
+
+    reads = []
+    real = asm.b_dsh
+    monkeypatch.setattr(asm, "b_dsh", lambda B: reads.append(1) or real(B))
+    rng = np.random.default_rng(5)
+    ct = torch.as_tensor(rng.normal(size=(4, 2, 5, 8, 6, 6)))
+    B = torch.as_tensor(b_matrix((1.0, 1.0, 1.0)))
+    A = asm.assemble_stencil_soa_kernel(ct, B, 0.125, (5, 3, 6))
+    assert len(reads) == 1
+    dsh = real(B)
+    assert torch.equal(asm.assemble_stencil_soa_kernel(ct, B, 0.125, (5, 3, 6), dsh=dsh), A)
+    assert len(reads) == 1
+    for spacing in [(1.0, 1.0, 1.0), (2.0, 1.0, 2.0), (0.5, 0.25, 1.0)]:
+        assert np.array_equal(shape_derivatives(spacing),
+                              real(torch.as_tensor(b_matrix(spacing))))
+    ctan = torch.as_tensor(rng.normal(size=(8, 2, 8, 8, 6, 6)))
+    mask = torch.zeros((3, 9, 3, 9), dtype=torch.bool)
+    levels = build_hierarchy(ctan, mask, (1.0, 1.0, 1.0), True,
+                             assemble_fn=asm.assemble_stencil_soa_kernel)
+    assert len(levels) >= 3 and len(reads) == 1
+    plain = build_hierarchy(ctan, mask, (1.0, 1.0, 1.0), True)
+    for a, b in zip(levels, plain):
+        assert _rel(a.A_soa.numpy(), b.A_soa.numpy()) < TOL

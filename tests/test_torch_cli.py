@@ -2,7 +2,7 @@
 CPU (MACROC_PLATFORM=cpu) against ``python -m macroc_tpu`` at float64 on
 one CTest grid, with CG, GMRES and the matrix-free operator, and on the FE²
 golden's launch line (tests/test_cli.py is the model); the flags the port
-accepts and the one it refuses (multi-GPU)."""
+accepts, and those it refuses under more than one rank."""
 
 import os
 import subprocess
@@ -99,16 +99,48 @@ def test_micro_flags_reach_the_engine():
 
 
 def test_cli_rejects_unported_flags(tmp_path):
+    """One process asked for two ranks along x: the grid's own ValueError,
+    as ``make_grid`` raises in both packages."""
     r = _run("macroc_tpu_torch", tmp_path, ["-da_processors_x", "2"], check=False)
     assert r.returncode != 0
-    assert "NotImplementedError" in r.stderr and "-da_processors_" in r.stderr
+    assert "ValueError: cannot decompose grid 5x3x3 over 1 devices" in r.stderr
 
 
-@pytest.mark.parametrize("flags,named", [(["-da_processors_x", "2"], "-da_processors_*")])
+def test_one_process_with_a_pinned_rank_grid_raises(monkeypatch):
+    monkeypatch.setenv("MACROC_PLATFORM", "cpu")
+    with pytest.raises(ValueError, match="processor grid 2x1x1 != device count 1"):
+        cli.run(FLAGS + ["-da_processors_x", "2", "-da_processors_y", "1",
+                         "-da_processors_z", "1"])
+
+
+@pytest.mark.parametrize("flags,named", [
+    (["-pc_type", "mg"], "-pc_type mg"),
+    # 17x17x3: two deep dims, so auto resolves to MG
+    (["-da_grid_x", "17", "-da_grid_z", "17"], "-pc_type auto (MG)"),
+    (["-operator", "matfree"], "-operator matfree"),
+    (FE2_FLAGS[-8:-2], "micro-FE"),
+    (["-vtu_freq", "1"], "-vtu_freq"),
+    (["-checkpoint_freq", "2"], "-checkpoint_freq"),
+    (["-resume"], "-resume"),
+])
 def test_unsupported_flags_named(flags, named):
-    """Multi-GPU is the one configuration the port refuses."""
-    missing = cli.unsupported(cli.parse_cli(flags))
-    assert len(missing) == 1 and missing[0].startswith(named)
+    """Under more than one rank the port refuses MG, the matrix-free
+    operator, micro-FE, VTU output, checkpoints and resume, each by name;
+    one process runs them all."""
+    cfg = cli.parse_cli(["-da_grid_x", "5", "-da_grid_y", "3", "-da_grid_z", "3"] + flags)
+    missing = cli.unsupported(cfg, world=2)
+    assert len(missing) == 1 and missing[0].startswith(named), missing
+    assert cli.unsupported(cfg) == []
+    assert cli.unsupported(cli.parse_cli(FLAGS[:-2]), world=2) == []
+
+
+def test_unsupported_raises_before_the_run(monkeypatch):
+    """cli.run turns the list into NotImplementedError under a process
+    group, before anything runs."""
+    monkeypatch.setattr(cli.distributed, "world", lambda: 2)
+    monkeypatch.setenv("MACROC_PLATFORM", "cpu")
+    with pytest.raises(NotImplementedError, match="-pc_type mg under 2 ranks"):
+        cli.run(FLAGS + ["-pc_type", "mg"])
 
 
 @pytest.mark.parametrize("flags", [

@@ -25,6 +25,9 @@ MODULES = [
     "macroc_tpu_torch.constitutive.microfe",
     "macroc_tpu_torch.ops.assembly",
     "macroc_tpu_torch.ops.stencil_spmv",
+    "macroc_tpu_torch.parallel.distributed",
+    "macroc_tpu_torch.parallel.halo",
+    "macroc_tpu_torch.parallel.mesh",
     "macroc_tpu_torch.solve.mg",
     "macroc_tpu_torch.solve.gmres",
     "macroc_tpu_torch.utils.checkpoint",
