@@ -59,14 +59,20 @@ non-zero without the result line):
                one node plane per split axis (a slice of a node-shaped
                tangent field) and K1's halo form on the exchanged x, at the
                rank blocks of this phase's lines and of 128^3 over 2, 4 and
-               8 ranks, f32 and f64, against their plain versions; then
-               ``macroc_tpu_torch.cli`` as separate processes, each with
-               its launch counters: scripts/pod_run.sh's 100^3 line (2
-               steps, Jacobi, f32) as 2 ranks sharing the card (gloo by
-               the backend rule) against 1 process, and the f64
-               bending_plastic_5x3x3 golden line at 2 ranks against 1
-               process within the golden roundoff bounds; where there are
-               two cards, the 100^3 line again with NCCL.
+               8 ranks, f32 and f64, against their plain versions; the
+               host cost of one all-reduce, halo exchange and K1 halo call,
+               and of MG's level-1 tangent and coarse-vector all-reduces;
+               then ``macroc_tpu_torch.cli`` as separate processes, each
+               with its launch counters and peak memory:
+               scripts/pod_run.sh's 100^3 line as written (2 steps, MG,
+               f32) as 2 ranks sharing the card (gloo by the backend rule)
+               against 1 process; the production FE² line at 2 ranks
+               against 1; the 10x3x10 full-solve FE² line's MicroState
+               checkpoint written by 2 ranks and resumed on 1 and on 2;
+               and the f64 bending_plastic_5x3x3 golden line at 2 ranks
+               (with -vtu_freq 1: PVTU pieces per rank) against 1 process
+               within the golden roundoff bounds; where there are two
+               cards, the 100^3 line again with NCCL.
 
 The second-to-last line is the per-kernel JSON record, the last line
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits 1
@@ -128,8 +134,9 @@ FE2_PLASTIC = GRID_50 + FE2_FLAGS + ["-ts", "3", "-dt", "0.25"]
 MICROFE_TOL = dict(stress=1e-5, ctan=1e-5)
 
 # fine node grids of the driven paths: with an MG hierarchy (128^3 J2,
-# 50x3x50 FE²), and with Jacobi PCG on one level (10x3x10 FE²)
-MG_GRIDS = [(128, 128, 128), (50, 3, 50)]
+# 50x3x50 FE², the 100^3 pod_run.sh line, whose coarse levels every rank
+# runs whole), and with Jacobi PCG on one level (10x3x10 FE²)
+MG_GRIDS = [(128, 128, 128), (50, 3, 50), (100, 100, 100)]
 JACOBI_GRID = (10, 3, 10)
 
 MAIN_FLAGS = [
@@ -845,20 +852,25 @@ def phase_fe2(dev):
 
 
 # the JAX package's documented multi-device line (scripts/pod_run.sh: the
-# reference's 100^3 strong-scaling grid), 2 of its steps, Jacobi PCG, f32
+# reference's 100^3 strong-scaling grid) as written, 2 of its 10 steps:
+# pc_type auto (MG), f32; pod_run.sh pins -da_processors_x to the process
+# count when MACROC_NUM_PROCESSES is set (POD_RUN_2)
 POD_RUN = [
     "-da_grid_x", "100", "-da_grid_y", "100", "-da_grid_z", "100", "-lx", "50", "-ly", "50",
-    "-lz", "50", "-bc_type", "1", "-rad", "10", "-newton_max_its", "4", "-dt", "0.001",
-    "-ts", "2", "-pc_type", "jacobi", "-dtype", "float32",
+    "-lz", "50", "-ts", "2", "-dt", "0.001", "-bc_type", "1", "-rad", "10",
+    "-newton_max_its", "4", "-checkpoint_freq", "0", "-log_phases",
 ]
+POD_RUN_2 = POD_RUN + ["-da_processors_x", "2"]
 # the bending_plastic_5x3x3 golden's flags (tests/make_goldens.py), f64
 PLASTIC_5 = [
     "-da_grid_x", "5", "-da_grid_y", "3", "-da_grid_z", "3", "-lx", "4", "-ly", "2", "-lz", "2",
     "-bc_type", "0", "-ts", "4", "-dt", "0.15", "-newton_max_its", "10", "-dtype", "float64",
 ]
-# N ranks against one process on the pod_run.sh line: info.dat rows to this
-# relative bound (f32 dots summed in another order through a Jacobi solve),
-# KSP its per solve within 2% or 2
+# N ranks against one process on the pod_run.sh and production FE² lines,
+# and 1 against 2 ranks resuming one checkpoint: info.dat rows to this
+# relative bound (f32 dots, restrictions and coarse tangents summed in
+# another order through the solves), yielded-GP counts exactly, KSP its per
+# solve within 2% or 2
 POD_RTOL = 1e-4
 # the per-rank kernel shapes against the plain versions, relative: K2 (f32,
 # f64) as PR 5 held it; K1 to the same f32 bound and ~9 f64 ulps (its 81
@@ -884,13 +896,17 @@ k2.launches = 0
 result = cli.run(json.loads(sys.argv[1]))
 print("RANK " + json.dumps(dict(
     rank=int(os.environ.get("MACROC_PROCESS_ID", "0")), backend=(backend or [None])[0],
-    K1=k1.launches, K2=k2.launches, history=result["history"])), flush=True)
+    K1=k1.launches, K2=k2.launches, history=result["history"], phases=result["phases"],
+    state=type(result["state"]).__name__,
+    peak_gib=torch.cuda.max_memory_allocated() / 2**30)), flush=True)
 """
 
 
 # the rank-grid costs of one CG iteration on the pod_run.sh block, each
 # rank timing on the host clock (they share the card): a 2-element
-# all-reduce, the halo exchange of x, K1's halo form, and both together
+# all-reduce, the halo exchange of x, K1's halo form, and both together;
+# and MG's two all-reduces across ranks: the level-1 tangents (once per
+# Newton iteration) and the restricted coarse vector (once per V-cycle)
 COMM_PROGRAM = r"""
 import json, sys, time
 import torch
@@ -922,7 +938,14 @@ def per_call_ms(fn, reps):
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / reps * 1e3
 
+from macroc_tpu_torch.solve.mg import coarse_size
+coarse = [coarse_size(n) for n in mesh.node_shape]
+tangents = torch.zeros(tuple(c - 1 for c in coarse) + (8, 6, 6), device=dev)
+rc = torch.zeros((3,) + tuple(coarse), device=dev)
 out = dict(rank=mesh.comm.rank, backend=mesh.comm.backend,
+           level1_bytes=tangents.numel() * 4, restrict_bytes=rc.numel() * 4,
+           level1_allreduce_ms=per_call_ms(lambda: mesh.comm.sum(tangents), 3),
+           restrict_allreduce_ms=per_call_ms(lambda: mesh.comm.sum(rc), 20),
            allreduce_ms=per_call_ms(lambda: mesh.comm.sum(dots), 200),
            halo_exchange_ms=per_call_ms(lambda: halo.halo_exchange(x, mesh, dims=(1, 2, 3)), 100),
            k1_halo_ms=per_call_ms(lambda: stencil_matvec(A, xe, halo=True), 100),
@@ -969,18 +992,47 @@ def spawn_ranks(tag, program, arg, n, timeout=600):
     return records
 
 
-def launch_ranks(tag, flags, n, out_dir):
+def launch_ranks(tag, flags, n, out_dir, ckpt_dir=None):
     """``RANK_PROGRAM`` (the CLI) on ``flags`` as n ranks; checks every
     step converged and every rank launched K1 and K2."""
-    records = spawn_ranks(tag, RANK_PROGRAM, json.dumps(flags + ["-output_dir", out_dir]), n)
+    argv = flags + ["-output_dir", out_dir] + (["-checkpoint_dir", ckpt_dir] if ckpt_dir else [])
+    records = spawn_ranks(tag, RANK_PROGRAM, json.dumps(argv), n)
     for r in records:
         h = r["history"]
         log(f"[{tag}] rank {r['rank']} of {n} (backend {r['backend']}): step seconds "
             f"{[round(s['seconds'], 4) for s in h]}, KSP its {[s['ksp_its'] for s in h]}, "
-            f"launches K1 {r['K1']} K2 {r['K2']}")
+            f"launches K1 {r['K1']} K2 {r['K2']}, peak device memory {r['peak_gib']:.2f} GiB"
+            + (f", phases (s) {json.dumps({k: round(v, 4) for k, v in r['phases'].items()})}"
+               if r["phases"] else ""))
         check(all(s["converged"] for s in h), f"{tag}: a step did not converge")
         check(r["K1"] > 0 and r["K2"] > 0, f"{tag}: rank {r['rank']} launched no K1 or K2")
     return records
+
+
+def summed(records):
+    """The K1/K2 launches of a run, summed over its ranks."""
+    return {k: sum(r[k] for r in records) for k in ("K1", "K2")}
+
+
+def compare_ranks(tag, h1, h2, t1, t2, rtol):
+    """N ranks against 1 process: the same Newton iterations, KSP its per
+    solve within 2% or 2, info.dat rows (yielded GPs exactly) within
+    ``rtol``; returns the worst row deviation."""
+    check([len(s["res_norms"]) for s in h1] == [len(s["res_norms"]) for s in h2],
+          f"{tag}: Newton iteration counts differ")
+    its = lambda h: [k for s in h for k in s["ksp_its"]]
+    check(len(its(h1)) == len(its(h2)) and all(
+        abs(a - b) <= max(2, 0.02 * a) for a, b in zip(its(h1), its(h2))),
+        f"{tag}: KSP its {its(h2)} vs {its(h1)}")
+    check(len(t1) == len(t2) and all(r[5] == q[5] for r, q in zip(t1, t2)),
+          f"{tag}: info.dat rows or yielded-GP counts differ")
+    worst = max(abs(a - b) / max(abs(a), 1e-30) for r, q in zip(t1, t2) for a, b in zip(r, q))
+    log(f"[{tag}] 2 ranks vs 1 process: Newton its {[len(s['res_norms']) for s in h2]}, KSP its "
+        f"{its(h2)} vs {its(h1)}, info.dat max rel dev {worst:.3e} (bound {rtol:g}); per KSP "
+        f"iteration {step_ms_per_its(h2):.4f} ms on 2 ranks vs {step_ms_per_its(h1):.4f} ms on "
+        "1 (two ranks sharing one card: not a scaling figure)")
+    check(worst <= rtol, f"{tag}: info.dat rows deviate by {worst:.3e}")
+    return worst
 
 
 def info_table(out_dir):
@@ -992,16 +1044,22 @@ def dist_shapes():
     runs and of 128^3 over 2, 4 and 8 ranks, by decide_processor_grid."""
     from macroc_tpu_torch.grid import decide_processor_grid
 
-    grids = [("pod_run 100^3", (100,) * 3, 2), ("plastic 5x3x3", (5, 3, 3), 2)]
-    grids += [("128^3", (128,) * 3, n) for n in (2, 4, 8)]
-    return [(f"{label} over {n}", g, decide_processor_grid(n, *g)) for label, g, n in grids]
+    grids = [("pod_run 100^3", (100,) * 3, 2, (2, None, None)),
+             ("plastic 5x3x3", (5, 3, 3), 2, (None,) * 3),
+             ("fe2 production 50x3x50", (50, 3, 50), 2, (None,) * 3),
+             ("fe2 full 10x3x10", (10, 3, 10), 2, (None,) * 3)]
+    grids += [("128^3", (128,) * 3, n, (None,) * 3) for n in (2, 4, 8)]
+    return [(f"{label} over {n}", g, decide_processor_grid(n, *g, fixed=fixed))
+            for label, g, n, fixed in grids]
 
 
 def phase_dist(dev):
-    """The domain-decomposed J2 run: per-rank kernel shapes, the pod_run.sh
-    line as 2 processes on the card against 1 process, the f64 plastic
-    golden line at 2 ranks against 1, and the NCCL run where there is a
-    card per rank."""
+    """The domain-decomposed run: per-rank kernel shapes; the pod_run.sh
+    line (MG across ranks) and the production FE² line as 2 processes on
+    the card against 1 process; FE2_FULL's MicroState checkpoint written by
+    2 ranks and taken up by 1 and by 2; the f64 plastic golden line at 2
+    ranks, writing its PVTU pieces per rank, against 1; and the NCCL run
+    where there is a card per rank."""
     from macroc_tpu_torch.fem.element import b_matrix
     from macroc_tpu_torch.ops import assembly as asm
     from macroc_tpu_torch.ops.stencil_spmv import stencil_matvec, stencil_matvec_soa
@@ -1048,48 +1106,101 @@ def phase_dist(dev):
         log(f"[dist comm] rank {r['rank']} of 2 ({r['backend']}, sharing the card), host ms per "
             f"call: 2-element all-reduce {r['allreduce_ms']:.4f}, halo exchange of x "
             f"{r['halo_exchange_ms']:.4f}, K1 halo form {r['k1_halo_ms']:.4f}, exchange + K1 "
-            f"{r['matvec_local_ms']:.4f}")
+            f"{r['matvec_local_ms']:.4f}; MG level-1 tangents all-reduce "
+            f"({r['level1_bytes']} B, once per Newton iteration) {r['level1_allreduce_ms']:.4f}, "
+            f"restricted vector all-reduce ({r['restrict_bytes']} B, once per V-cycle) "
+            f"{r['restrict_allreduce_ms']:.4f}")
+    return dist_lines(), k1_ms
 
+
+def dist_lines():
+    """The dist phase's CLI lines, each as separate processes: returns
+    each 2-rank line's launches, summed over its ranks."""
     launches = {}
     with tempfile.TemporaryDirectory() as one, tempfile.TemporaryDirectory() as two:
         r1 = launch_ranks("dist pod_run 1 process", POD_RUN, 1, one)[0]
-        r2 = launch_ranks("dist pod_run 2 ranks", POD_RUN, 2, two)
-        launches["dist_pod_2ranks"] = {k: sum(r[k] for r in r2) for k in ("K1", "K2")}
-        h1, h2 = r1["history"], r2[0]["history"]
+        r2 = launch_ranks("dist pod_run 2 ranks", POD_RUN_2, 2, two)
+        launches["dist_pod_mg_2ranks"] = summed(r2)
         check(r2[0]["backend"] == "gloo", f"dist pod_run: backend {r2[0]['backend']}, want gloo "
               "(two ranks share the one card)")
-        check([len(s["res_norms"]) for s in h1] == [len(s["res_norms"]) for s in h2],
-              "dist pod_run: Newton iteration counts differ")
-        its = lambda h: [k for s in h for k in s["ksp_its"]]
-        check(len(its(h1)) == len(its(h2)) and all(
-            abs(a - b) <= max(2, 0.02 * a) for a, b in zip(its(h1), its(h2))),
-            f"dist pod_run: KSP its {its(h2)} vs {its(h1)}")
-        t1, t2 = info_table(one), info_table(two)
-        check(len(t1) == len(t2), "dist pod_run: info.dat row counts differ")
-        worst = max(abs(a - b) / max(abs(a), 1e-30) for r, q in zip(t1, t2) for a, b in zip(r, q))
-        log(f"[dist pod_run] 2 ranks vs 1 process: Newton its {[len(s['res_norms']) for s in h2]}, "
-            f"KSP its {its(h2)} vs {its(h1)}, info.dat max rel dev {worst:.3e} (bound "
-            f"{POD_RTOL:g}); per KSP iteration {step_ms_per_its(h2):.4f} ms on 2 ranks vs "
-            f"{step_ms_per_its(h1):.4f} ms on 1 (two ranks sharing one card: not a scaling "
-            "figure)")
-        check(worst <= POD_RTOL, f"dist pod_run: info.dat rows deviate by {worst:.3e}")
+        compare_ranks("dist pod_run", r1["history"], r2[0]["history"], info_table(one),
+                      info_table(two), POD_RTOL)
+    with tempfile.TemporaryDirectory() as one, tempfile.TemporaryDirectory() as two:
+        r1 = launch_ranks("dist fe2 production 1 process", FE2_PRODUCTION, 1, one)[0]
+        r2 = launch_ranks("dist fe2 production 2 ranks", FE2_PRODUCTION, 2, two)
+        launches["dist_fe2_production_2ranks"] = summed(r2)
+        compare_ranks("dist fe2 production", r1["history"], r2[0]["history"], info_table(one),
+                      info_table(two), POD_RTOL)
+        log(f"[dist fe2 production] peak device memory per rank "
+            f"{[round(r['peak_gib'], 2) for r in r2]} GiB on 2 ranks against "
+            f"{r1['peak_gib']:.2f} GiB on 1 process")
+    with tempfile.TemporaryDirectory() as out:
+        # FE2_FULL's checkpoint at step 2 written by 2 ranks (one file each),
+        # taken up by 1 process and by 2 ranks, each redoing step 2
+        ck = os.path.join(out, "checkpoints")
+        r2 = launch_ranks("dist fe2 full 2 ranks", FE2_FULL + ["-ts", "2"], 2,
+                          os.path.join(out, "first"), ckpt_dir=ck)
+        launches["dist_fe2_full_2ranks"] = summed(r2)
+        files = sorted(os.listdir(os.path.join(ck, "step_2")))
+        check(files == ["proc_0.json", "proc_0.npz", "proc_1.json", "proc_1.npz"],
+              f"dist fe2 checkpoint: files {files}")
+        resumed = {}
+        for n in (1, 2):
+            rr = launch_ranks(f"dist fe2 resume on {n}", FE2_FULL + ["-resume"], n,
+                              os.path.join(out, f"resume{n}"), ckpt_dir=ck)
+            check(all(r["state"] == "MicroState" for r in rr)
+                  and [s["ts"] for s in rr[0]["history"]] == [2],
+                  f"dist fe2 resume on {n}: not a MicroState taken up at step 2")
+            resumed[n] = info_table(os.path.join(out, f"resume{n}"))
+            if n == 2:
+                launches["dist_fe2_resume_2ranks"] = summed(rr)
+        worst = max(abs(a - b) / max(abs(a), 1e-30)
+                    for r, q in zip(resumed[1], resumed[2]) for a, b in zip(r, q))
+        log(f"[dist fe2 resume] the 2 ranks' MicroState checkpoint taken up by 1 process and by "
+            f"2 ranks: step-2 info.dat rows within {worst:.3e} (bound {POD_RTOL:g})")
+        check(len(resumed[1]) == len(resumed[2]) == 1 and resumed[1][0][5] == resumed[2][0][5]
+              and worst <= POD_RTOL, "dist fe2 resume: the resumed rows differ")
     with tempfile.TemporaryDirectory() as one, tempfile.TemporaryDirectory() as two:
         h1 = launch_ranks("dist plastic 1 process", PLASTIC_5, 1, one)[0]["history"]
-        r2 = launch_ranks("dist plastic 2 ranks", PLASTIC_5, 2, two)
-        launches["dist_plastic_2ranks"] = {k: sum(r[k] for r in r2) for k in ("K1", "K2")}
+        r2 = launch_ranks("dist plastic 2 ranks", PLASTIC_5 + ["-vtu_freq", "1"], 2, two)
+        launches["dist_plastic_vtu_2ranks"] = summed(r2)
         bad = roundoff_failures(r2[0]["history"], h1)
         log(f"[dist plastic] 2 ranks vs 1 process at f64: nl_gps "
             f"{[s['nl_gps'] for s in r2[0]['history']]}, KSP its "
             f"{[s['ksp_its'] for s in r2[0]['history']]} vs {[s['ksp_its'] for s in h1]}: "
             + ("PASS" if not bad else f"FAIL {bad}"))
         check(not bad, "dist plastic: 2 ranks outside the roundoff bounds")
+        check_pieces(two, PLASTIC_5, 2)
     if torch.cuda.device_count() >= 2:
         with tempfile.TemporaryDirectory() as two:
-            r = launch_ranks("dist pod_run 2 ranks nccl", POD_RUN, 2, two)
+            r = launch_ranks("dist pod_run 2 ranks nccl", POD_RUN_2, 2, two)
             check(r[0]["backend"] == "nccl", "dist nccl: the backend rule did not pick NCCL")
     else:
         log(f"[dist] the NCCL run (one card per rank) not made: {torch.cuda.device_count()} card")
-    return launches, k1_ms
+    return launches
+
+
+def check_pieces(out_dir, flags, n):
+    """Each step's PVTU of an n-rank -vtu_freq 1 run: one master listing n
+    pieces, and each piece holding its DMDA ghost box's points."""
+    import re
+
+    from macroc_tpu_torch.config import parse_cli
+    from macroc_tpu_torch.grid import make_grid
+
+    cfg = parse_cli(flags)
+    g = make_grid(cfg, n)
+    for ts in range(cfg.ts):
+        with open(os.path.join(out_dir, f"solution_{ts}.pvtu")) as f:
+            master = f.read()
+        check(master.count("<Piece Source=") == n, f"dist vtu: step {ts} master lists pieces")
+        for r in range(n):
+            b = g.local_box(r)
+            with open(os.path.join(out_dir, f"solution_{ts}-subdo-{r}.vtu")) as f:
+                points = int(re.search(r'NumberOfPoints="(\d+)"', f.read()).group(1))
+            check(points == b.nx_ghost * b.ny_ghost * b.nz_ghost,
+                  f"dist vtu: step {ts} piece {r} has {points} points")
+    log(f"[dist vtu] {cfg.ts} steps: one master and {n} pieces each, written by the ranks")
 
 
 def step_ms_per_its(history):

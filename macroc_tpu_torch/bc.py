@@ -71,25 +71,30 @@ def build_bc(
     )
 
 
-def build_bc_block(
-    grid: StructuredGrid3D, cfg: MacroConfig, node_shape, block, dtype: torch.dtype,
-    device: torch.device,
+def build_bc_padded(
+    grid: StructuredGrid3D, cfg: MacroConfig, node_shape, dtype: torch.dtype,
 ) -> BCData:
-    """One rank's BCData: the global mask and values padded to
-    ``node_shape`` (padded nodes constrained to 0, as
-    ``macroc_tpu/problem.py:199-206``), cut to the slices ``block``, with
-    the neighbour mask taken from the global padded mask once here (the
-    mask is static, so no exchange is needed per Newton iteration)."""
+    """The global mask and values padded to ``node_shape`` (padded nodes
+    constrained to 0, as ``macroc_tpu/problem.py:199-206``), on the host."""
     bc0 = build_bc(grid, cfg, dtype, torch.device("cpu"))
     real = (slice(0, grid.nx), slice(0, grid.ny), slice(0, grid.nz))
     mask = torch.ones(tuple(node_shape) + (3,), dtype=torch.bool)
     mask[real] = bc0.mask
     val = torch.zeros(tuple(node_shape) + (3,), dtype=dtype)
     val[real] = bc0.val_unit
-    nbr = neighbor_mask_soa(mask.permute(3, 0, 1, 2))[(slice(None), slice(None)) + tuple(block)]
+    return BCData(mask=mask, val_unit=val)
+
+
+def bc_block(padded: BCData, block, device: torch.device) -> BCData:
+    """One rank's BCData: ``build_bc_padded``'s arrays cut to the slices
+    ``block``, with the neighbour mask taken from the global padded mask
+    once here (the mask is static, so no exchange is needed per Newton
+    iteration)."""
+    block = tuple(block)
+    nbr = neighbor_mask_soa(padded.mask.permute(3, 0, 1, 2))[(slice(None), slice(None)) + block]
     return BCData(
-        mask=mask[tuple(block)].contiguous().to(device),
-        val_unit=val[tuple(block)].contiguous().to(device),
+        mask=padded.mask[block].contiguous().to(device),
+        val_unit=padded.val_unit[block].contiguous().to(device),
         nbr_mask=nbr.contiguous().to(device),
     )
 

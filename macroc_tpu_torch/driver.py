@@ -1,5 +1,5 @@
 """Simulation driver — the time loop with reference-compatible logging/IO
-(torch form of ``macroc_tpu/driver.py``, one device).
+(torch form of ``macroc_tpu/driver.py``).
 
 Orchestrates MacroProblem.time_step over ``ts`` steps, producing the
 reference's stdout narrative (banner, per-Newton |RES|, per-solve KSP
@@ -13,7 +13,9 @@ package's format); ``-profile_dir`` traces the time loop with
 
 Under a process group every rank runs the time loop on its block; rank 0
 alone prints the narrative and writes info.dat and gauss_evolution.dat
-(PetscPrintf semantics, ``macroc_tpu/driver.py:57``).
+(PetscPrintf semantics, ``macroc_tpu/driver.py:57``).  Each rank writes its
+own checkpoint file and the VTU pieces its ghosted patch covers; rank 0
+writes the .pvtu master.
 """
 
 from __future__ import annotations
@@ -27,36 +29,36 @@ import torch
 
 from macroc_tpu_torch.config import BC_BENDING, BC_CIRCLE, MacroConfig
 from macroc_tpu_torch.io import GaussEvolutionWriter, InfoWriter, write_pvtu
+from macroc_tpu_torch.io.parallel_vtu import assign_pieces, extract_patch, halo_widths
+from macroc_tpu_torch.io.vtu import OffsetView
 from macroc_tpu_torch.parallel import distributed
 from macroc_tpu_torch.fem.kernels import compute_strains
-from macroc_tpu_torch.constitutive import engine_kind
 from macroc_tpu_torch.grid import make_grid
+from macroc_tpu_torch.parallel.halo import ghosted_blocks
 from macroc_tpu_torch.parallel.mesh import padded_node_shape
 from macroc_tpu_torch.problem import MacroProblem, resolve_solver_plan_torch
 from macroc_tpu_torch.solve.cg import KSP_REASON_NAMES
+from macroc_tpu_torch.solve.mg import line_dim_for, line_split_message
 from macroc_tpu_torch.utils import checkpoint as ckpt
 from macroc_tpu_torch.utils.profiling import PhaseTimer, trace
 
 
 def unsupported(cfg: MacroConfig, world: int = 1) -> list:
-    """The reasons this config cannot run on the port yet over ``world``
-    ranks (empty: it can).  One process runs everything; more than one
-    rank does not run MG, the matrix-free operator, micro-FE, VTU output,
-    checkpoints or resume yet (ROADMAP.md items 15e-15f)."""
+    """The reasons this config cannot run on the port over ``world`` ranks
+    (empty: it can).  One limit is left, under ranks only: MG on a rank
+    grid that splits the line dimension of a semicoarsened hierarchy (the
+    JAX package runs it; ROADMAP.md queue 3)."""
     if world == 1:
         return []
+    grid = make_grid(cfg, world)
     # "auto" resolves on the padded node shape, as the step does
-    plan = resolve_solver_plan_torch(cfg, padded_node_shape(make_grid(cfg, world)), "cpu")
-    checks = [
-        (plan["pc_type"] == "mg",
-         "-pc_type mg" if cfg.pc_type == "mg" else "-pc_type auto (MG)"),
-        (cfg.operator == "matfree", "-operator matfree"),
-        (engine_kind(cfg) == "microfe", "micro-FE (FE²)"),
-        (cfg.vtu_freq > 0, "-vtu_freq > 0"),
-        (cfg.checkpoint_freq > 0, "-checkpoint_freq > 0"),
-        (cfg.resume, "-resume"),
-    ]
-    return [f"{what} under {world} ranks" for bad, what in checks if bad]
+    shape = padded_node_shape(grid)
+    plan = resolve_solver_plan_torch(cfg, shape, "cpu")
+    d = line_dim_for(shape)
+    if plan["pc_type"] == "mg" and plan["operator"] != "matfree" and d >= 0 \
+            and grid.procs[d] > 1:
+        return [f"{line_split_message(d, grid.procs[d])} (under {world} ranks)"]
+    return []
 
 
 class Simulation:
@@ -65,8 +67,7 @@ class Simulation:
         missing = unsupported(cfg, distributed.world())
         if missing:
             raise NotImplementedError(
-                "not ported to macroc_tpu_torch yet (ROADMAP.md lists the "
-                "order): " + "; ".join(missing)
+                "macroc_tpu_torch does not run this configuration: " + "; ".join(missing)
             )
         self.cfg = cfg
         self.problem = MacroProblem(cfg, device)
@@ -76,22 +77,50 @@ class Simulation:
         if log is None:
             log = (lambda s: print(s, end="", flush=True)) if self.primary else (lambda s: None)
         self._log = log
+        mesh = self.problem.mesh
+        if mesh is not None and cfg.vtu_freq > 0:
+            # each rank writes the pieces its ghosted patch covers
+            # (macroc_tpu/driver.py:80-97)
+            self._vtu_halo = halo_widths(self.grid, mesh.node_shape)
+            owner = assign_pieces(self.grid, mesh.node_shape, self._vtu_halo, mesh)
+            self._vtu_pieces = sorted(r for r, p in owner.items() if p == mesh.comm.rank)
+
+    def _write_vtu(self, prefix, u, diag, encoding):
+        """The PVTU master (rank 0) and pieces of one step.  On one process
+        from the whole fields; on a rank from its ghosted patches, with no
+        global array anywhere (reference output.c:78-79,
+        ``macroc_tpu/driver.py:182-216``)."""
+        p = self.problem
+        fields = self.vtu_fields(u, diag)
+        kw = dict(outdir=self.cfg.output_dir, encoding=encoding, reduced=True)
+        if p.mesh is None:
+            u_v, stress_v, strain_v, cost_v, nl_v = (t.cpu().numpy() for t in fields)
+        else:
+            origin, patches = extract_patch(ghosted_blocks(fields, p.mesh, self._vtu_halo),
+                                            p.mesh, self._vtu_halo)
+            u_v, stress_v, strain_v, cost_v, nl_v = (OffsetView(a, origin) for a in patches)
+            kw.update(ranks=self._vtu_pieces, write_master=self.primary)
+        write_pvtu(prefix, self.grid, u_v, stress_v, strain_v, nl_v, cost_v, self.grid.wg,
+                   **kw)
 
     def vtu_fields(self, u, diag):
-        """Element-level VTU fields on the host (the reference's *wg sum and
-        /NGP average), reduced on the device in float64."""
+        """Element-level VTU fields (u, stress, strain, cost, non-linear
+        count) on the device: the reference's *wg sum and /NGP average, in
+        float64.  On one process the real box; on a rank its block, the
+        strains from the exchanged u."""
         p = self.problem
-        u_real = p.unpad_u(u)
-        strain = compute_strains(u_real, p.B)
-        wg = self.grid.wg
-        f64 = torch.float64
-        host = lambda t: t.cpu().numpy()
+        if p.mesh is None:
+            u = p.unpad_u(u)
+            strain = compute_strains(u, p.B)
+        else:
+            strain = p.slot_strains(u)
+        f64, wg = torch.float64, self.grid.wg
         return (
-            host(u_real),
-            host(diag.stress.to(f64).sum(dim=3) * wg),
-            host(strain.to(f64).sum(dim=3) * wg),
-            host(diag.cost.to(f64).sum(dim=3) / 8.0),
-            host(diag.non_linear.to(torch.int32).sum(dim=3)),
+            u,
+            diag.stress.to(f64).sum(dim=3) * wg,
+            strain.to(f64).sum(dim=3) * wg,
+            diag.cost.to(f64).sum(dim=3) / 8.0,
+            diag.non_linear.to(torch.int32).sum(dim=3),
         )
 
     def log_banner(self):
@@ -173,7 +202,7 @@ class Simulation:
         u, state = p.init_fields()
         start_step = 0
         if cfg.resume:
-            loaded = ckpt.load_latest(cfg.checkpoint_dir, (u, state))
+            loaded = ckpt.load_latest(cfg.checkpoint_dir, (u, state), p.mesh)
             if loaded is not None:
                 start_step, (u, state) = loaded
                 L(f"Resumed from checkpoint at step {start_step}\n")
@@ -236,20 +265,10 @@ class Simulation:
                     )
                     if cfg.vtu_freq > 0 and time_s % cfg.vtu_freq == 0:
                         with timer.phase("vtu_output"):
-                            u_real, el_stress, el_strain, el_cost, el_nl = (
-                                self.vtu_fields(u, diag)
-                            )
-                            write_pvtu(
-                                f"solution_{time_s}", self.grid,
-                                u_real, el_stress, el_strain, el_nl, el_cost,
-                                self.grid.wg,
-                                outdir=cfg.output_dir,
-                                encoding=vtu_encoding,
-                                reduced=True,
-                            )
+                            self._write_vtu(f"solution_{time_s}", u, diag, vtu_encoding)
                     if cfg.checkpoint_freq > 0 and (time_s + 1) % cfg.checkpoint_freq == 0:
                         with timer.phase("checkpoint"):
-                            ckpt.save(cfg.checkpoint_dir, time_s + 1, (u, state))
+                            ckpt.save(cfg.checkpoint_dir, time_s + 1, (u, state), p.mesh)
         finally:
             if self.primary:
                 info.close()

@@ -173,6 +173,12 @@ class Comm:
         """All-reduce MAX."""
         return self._reduce(t, dist.ReduceOp.MAX)
 
+    def barrier(self) -> None:
+        """Wait until every rank has reached this call (nothing on one
+        process)."""
+        if self.world > 1:
+            dist.barrier()
+
     def gather(self, t: torch.Tensor) -> list:
         """Every rank's ``t`` (of one shape on all ranks), in rank order, as
         CPU tensors on every rank."""

@@ -12,7 +12,8 @@ point-to-point sends.
   halo_fold_add   add the halo slabs back onto the ranks that own them,
                   axes in reverse order;
   fold_high_plane the one-sided fold of node-indexed assembly from owned
-                  elements.
+                  elements;
+  ghosted_blocks  halo_exchange of width h per axis, for the VTU pieces.
 
 ``assemble_stencil_local`` and ``stencil_matvec_local`` wire them around
 kernels K2 and K1.  The JAX package's ``overlap=True`` matvec is not
@@ -75,6 +76,22 @@ def halo_fold_add(xe: torch.Tensor, mesh: RankMesh, dims: Sequence[int] = (0, 1,
     for axis, dim in reversed(list(enumerate(dims))):
         xe = fold_axis_add(xe, mesh, axis, dim)
     return xe
+
+
+def ghosted_blocks(arrays: Sequence[torch.Tensor], mesh: RankMesh,
+                   halo: Sequence[int] = (1, 1, 1)) -> list:
+    """DMGlobalToLocal INSERT with a halo of ``halo[d]`` nodes on dim d:
+    each array (this rank's block, spatial dims leading) grown to the
+    true values of global region [start - h, start + block + h), zeros
+    beyond the grid (``macroc_tpu/parallel/halo.py:113-147``): width-h
+    exchange rounds along x, y, z, so edges and corners arrive too.  The
+    per-process patches of the VTU pieces (``io/parallel_vtu.py``)."""
+    out = []
+    for x in arrays:
+        for axis, w in enumerate(halo):
+            x = exchange_axis(x, mesh, axis, axis, width=w)
+        out.append(x)
+    return out
 
 
 def fold_high_plane(xe: torch.Tensor, mesh: RankMesh, axis: int, dim: int) -> torch.Tensor:

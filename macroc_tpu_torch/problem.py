@@ -27,10 +27,12 @@ decomposed as DMDA would (``make_grid(cfg, N)``), the node box is padded to
 multiples of the rank grid (pads Dirichlet-0, padded elements inactive) and
 each rank holds its block of u, the state and the GP fields
 (``parallel/mesh.py``): strains from the halo-exchanged u, a per-rank
-homogenize, the residual folded back onto its owners, K2 per rank with its
-extra plane folded on, K1 on the exchanged x, and all-reduced dots, norms
-and diagnostics (``macroc_tpu/problem.py:160-309, 399-413``).  MG, the
-matrix-free operator and micro-FE are one-process only for now.
+homogenize (J2, or micro-FE on the rank's own MicroState), the residual
+folded back onto its owners, K2 per rank with its extra plane folded on, K1
+on the exchanged x, the matrix-free operator in the residual's pattern, and
+all-reduced dots, norms and diagnostics (``macroc_tpu/problem.py:160-309,
+399-413``).  MG keeps level 0 on the ranks' blocks and runs the coarse
+levels of the padded box whole on every rank (``solve/mg.py``).
 """
 
 from __future__ import annotations
@@ -170,13 +172,16 @@ class MacroProblem:
             self.origin = (0, 0, 0)
             self.local_shape = self.node_shape
             self.bc = bc_mod.build_bc(g, cfg, self.dtype, self.device)
+            self.mask_soa = self.bc.mask.permute(3, 0, 1, 2)
         else:
             self.mesh = RankMesh(g, self.comm)
             self.node_shape = self.mesh.node_shape  # padded to the rank grid
             self.origin = self.mesh.start
             self.local_shape = self.mesh.block
-            self.bc = bc_mod.build_bc_block(g, cfg, self.node_shape, self.mesh.slices(),
-                                            self.dtype, self.device)
+            padded = bc_mod.build_bc_padded(g, cfg, self.node_shape, self.dtype)
+            self.bc = bc_mod.bc_block(padded, self.mesh.slices(), self.device)
+            # the global padded mask (SoA), which the coarse MG levels sample
+            self.mask_soa = padded.mask.permute(3, 0, 1, 2).contiguous().to(self.device)
             active = np.zeros(self.node_shape, dtype=bool)
             active[tuple(slice(0, n) for n in self.real_elem_shape)] = True
             # the rank's element slots that hold real elements
@@ -244,22 +249,43 @@ class MacroProblem:
         homogenize with no communication, the element forces scattered onto
         the block grown by one node per face and folded back onto their
         owners; |RES| from the all-reduced sum of squares."""
-        m = self.mesh
-        bx, by, bz = m.block
-        ue = halo_exchange(u, m, dims=(0, 1, 2))
-        # element slot i of the block has nodes i, i+1: elements i+1 of ue
-        eps = compute_strains(ue, self.B)[1:1 + bx, 1:1 + by, 1:1 + bz]
         # inactive (grid-padding, trailing) element slots see zero strain,
         # so their state stays pristine
-        eps = self._real(eps)
+        eps = self._real(self.slot_strains(u))
         with self._phase("homogenize"):
             hom = self.engine.homogenize(eps, state)
-        f = assemble_residual(self._real(hom.stress), self.B, self.grid.wg,
-                              (bx + 1, by + 1, bz + 1))
-        # onto local nodes -1 .. b: the halo planes go back to their owners
-        f = halo_fold_add(F.pad(f, (0, 0, 1, 0, 1, 0, 1, 0)), m, dims=(0, 1, 2))
+        f = self._fold_elements(assemble_residual(
+            self._real(hom.stress), self.B, self.grid.wg, self._ext_shape()))
         b = -bc_mod.apply_bc_on_res(f, self.bc)
         return b, torch.sqrt(self.comm.sum(torch.sum(b * b))), hom
+
+    def slot_strains(self, u: torch.Tensor) -> torch.Tensor:
+        """Strains (bx,by,bz,8,6) of a rank's element slots from its block
+        of u: element slot i has nodes i, i+1, which are elements i+1 of
+        the halo-exchanged u (a collective)."""
+        bx, by, bz = self.mesh.block
+        ue = halo_exchange(u, self.mesh, dims=(0, 1, 2))
+        return compute_strains(ue, self.B)[1:1 + bx, 1:1 + by, 1:1 + bz]
+
+    def _ext_shape(self):
+        """A rank's node block grown by one node per dim: the nodes its
+        element slots touch."""
+        return tuple(n + 1 for n in self.mesh.block)
+
+    def _fold_elements(self, f: torch.Tensor) -> torch.Tensor:
+        """Node values scattered from a rank's element slots onto local
+        nodes 0 .. b (``_ext_shape``) -> its block: padded to -1 .. b, the
+        halo planes go back to their owners (a collective)."""
+        return halo_fold_add(F.pad(f, (0, 0, 1, 0, 1, 0, 1, 0)), self.mesh, dims=(0, 1, 2))
+
+    def _matfree_local(self, ctan: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """The unassembled operator on a rank's block of x (node layout):
+        strains of the slots from the exchanged x, the per-GP tangents
+        (inactive slots zero), the element forces folded onto their
+        owners."""
+        sig = torch.einsum("xyzgvw,xyzgw->xyzgv", ctan, self.slot_strains(x))
+        return self._fold_elements(assemble_residual(sig, self.B, self.grid.wg,
+                                                     self._ext_shape()))
 
     def _krylov(self, mv, b: torch.Tensor, M):
         """The configured Krylov method (-ksp_type) on mv, b and M; its
@@ -283,14 +309,22 @@ class MacroProblem:
         """The matrix-free operator in node layout.  Jacobi and block-Jacobi
         both take the point diagonal with constrained rows set to 1; any
         other pc_type, mg included, runs unpreconditioned, as the JAX
-        package does (ROADMAP.md queue 3, R7)."""
+        package does (ROADMAP.md queue 3, R7).  On a rank the operator and
+        the diagonal are ``_residual_local``'s pattern: element terms on the
+        block's slots, folded back onto their owners."""
         g = self.grid
         with self._phase("precond_setup"):
-            mv = bc_mod.bc_operator(
-                matfree_matvec(ctan, self.B, g.wg, self.node_shape), self.bc
-            )
+            if self.mesh is None:
+                raw = matfree_matvec(ctan, self.B, g.wg, self.node_shape)
+            else:
+                raw = partial(self._matfree_local, ctan)
+            mv = bc_mod.bc_operator(raw, self.bc)
             if pc_type in ("jacobi", "bjacobi"):
-                diag = assemble_diagonal(ctan, self.B, g.wg, self.node_shape)
+                if self.mesh is None:
+                    diag = assemble_diagonal(ctan, self.B, g.wg, self.node_shape)
+                else:
+                    diag = self._fold_elements(
+                        assemble_diagonal(ctan, self.B, g.wg, self._ext_shape()))
                 diag = diag.masked_fill(self.bc.mask, 1.0)
                 M = lambda r: r / diag
             else:
@@ -305,12 +339,6 @@ class MacroProblem:
         its block."""
         cfg = self.cfg
         plan = resolve_solver_plan_torch(cfg, self.node_shape, self.device)
-        if self.mesh is not None and (plan["operator"] == "matfree" or plan["pc_type"] == "mg"):
-            raise NotImplementedError(
-                f"-operator {plan['operator']} -pc_type {plan['pc_type']} runs on one "
-                "process only; under more than one rank it is not ported yet "
-                "(ROADMAP.md item 15e)"
-            )
         if plan["operator"] == "matfree":
             return self._matfree_solve(ctan, b, plan["pc_type"])
         assemble = _ASSEMBLERS[plan["assembly"]]
@@ -332,9 +360,11 @@ class MacroProblem:
             elif pc_type == "bjacobi":
                 M = block_jacobi_precond_soa(A_soa)
             elif pc_type == "mg":
+                # on a rank: level 0 its block, the coarse levels whole on
+                # every rank (build_hierarchy's mesh form)
                 levels = build_hierarchy(
-                    ctan, self.bc.mask.permute(3, 0, 1, 2), self.grid.spacing,
-                    cfg.ref_b_quirk, A0_soa=A_soa, assemble_fn=assemble,
+                    ctan, self.mask_soa, self.grid.spacing, cfg.ref_b_quirk,
+                    A0_soa=A_soa, assemble_fn=assemble, mesh=self.mesh,
                 )
                 mgdt = self._mg_dtype()
                 if mgdt != self.dtype:
@@ -356,6 +386,7 @@ class MacroProblem:
                     coarse_direct=cfg.mg_coarse_direct,
                     transfer_order=cfg.mg_transfer_order or None,
                     dtype=self.dtype,
+                    mesh=self.mesh,
                 )
             elif pc_type == "none":
                 M = identity_precond()
@@ -465,9 +496,6 @@ def fields_from_numpy(u: np.ndarray, eps_p: np.ndarray, alpha: np.ndarray,
     N-process run, ``MacroProblem.mesh``) the arrays are the JAX N-device
     run's global ones and the rank takes its block."""
     dev = torch.device(device)
-    if mesh is not None and micro_u is not None:
-        raise NotImplementedError("a MicroState per rank is not ported yet "
-                                  "(ROADMAP.md item 15f)")
     cut = (lambda a: a) if mesh is None else mesh.local
     t = lambda a: torch.tensor(np.ascontiguousarray(cut(np.asarray(a))), device=dev)
     if micro_u is None:

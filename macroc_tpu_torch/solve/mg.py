@@ -20,6 +20,7 @@ and R = P^T exactly.
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
@@ -145,6 +146,20 @@ def transfer_matrices(fine_shape, coarse_shape, order: int, dtype, device):
     return mats
 
 
+def _rank_rows(mats, mesh, dtype, device):
+    """A rank's rows of the 1-D prolongations from the padded node box:
+    rows mesh.start .. +block of each split dim's P (of the identity where
+    the dim does not coarsen)."""
+    out = []
+    for d, P in enumerate(mats):
+        if mesh.split[d]:
+            if P is None:
+                P = torch.eye(mesh.node_shape[d], dtype=dtype, device=device)
+            P = P[mesh.start[d]:mesh.start[d] + mesh.block[d]].contiguous()
+        out.append(P)
+    return out
+
+
 def _prolong_with(u_c: torch.Tensor, mats) -> torch.Tensor:
     for d, P in enumerate(mats):
         if P is not None:
@@ -173,17 +188,24 @@ def restrict(r_f: torch.Tensor, coarse_shape=None, order: int = 1) -> torch.Tens
     return _restrict_with(r_f, mats)
 
 
-def _coarsen_elem_dim(x: torch.Tensor, dim: int, n_f_nodes: int) -> torch.Tensor:
-    """Average element pairs along one dim: coarse element j's children are
-    the fine elements between coarse nodes j and j+1 (two for a regular
-    interval, one for an even extent's short tail, which gets 0.5+0.5)."""
-    f_el = x.shape[dim]
+def _elem_average_matrix(n_f_nodes: int) -> np.ndarray:
+    """(coarse elements, fine elements) averaging matrix of one dim: coarse
+    element j's children are the fine elements between coarse nodes j and
+    j+1 (two for a regular interval, one for an even extent's short tail,
+    which gets 0.5+0.5)."""
+    f_el = n_f_nodes - 1
     nc_el = coarse_size(n_f_nodes) - 1
     ia = np.minimum(2 * np.arange(nc_el), f_el - 1)
     ib = np.minimum(ia + 1, f_el - 1)
     R = np.zeros((nc_el, f_el), np.float64)
     np.add.at(R, (np.arange(nc_el), ia), 0.5)
     np.add.at(R, (np.arange(nc_el), ib), 0.5)
+    return R
+
+
+def _coarsen_elem_dim(x: torch.Tensor, dim: int, n_f_nodes: int) -> torch.Tensor:
+    """Average element pairs along one dim (``_elem_average_matrix``)."""
+    R = _elem_average_matrix(n_f_nodes)
     return _along(x, dim, torch.as_tensor(R, dtype=x.dtype, device=x.device))
 
 
@@ -194,6 +216,26 @@ def coarsen_ctan(ctan: torch.Tensor, coarsen=(True, True, True)) -> torch.Tensor
         if coarsen[dim]:
             ctan = _coarsen_elem_dim(ctan, dim, ctan.shape[dim] + 1)
     return ctan
+
+
+def coarsen_ctan_ranks(ctan_l: torch.Tensor, coarsen, mesh) -> torch.Tensor:
+    """``coarsen_ctan`` of the global padded tangent field, on every rank,
+    from this rank's node-shaped block ctan_l (bx,by,bz,8,6,6; inactive
+    slots zero): per dim the rank's columns of the averaging matrix (the
+    trailing element slot of the padded box has no element, so a zero
+    column), then one sum all-reduce.  No rank holds the fine global
+    field."""
+    for dim in range(3):
+        n = mesh.node_shape[dim]
+        s, b = mesh.start[dim], mesh.block[dim]
+        if not coarsen[dim] and b == n:
+            ctan_l = ctan_l.narrow(dim, 0, n - 1)
+            continue
+        R = _elem_average_matrix(n) if coarsen[dim] else np.eye(n - 1)
+        R = np.pad(R, ((0, 0), (0, 1)))
+        ctan_l = _along(ctan_l, dim, torch.as_tensor(
+            R[:, s:s + b], dtype=ctan_l.dtype, device=ctan_l.device))
+    return mesh.comm.sum(ctan_l)
 
 
 def _sample_coarse(mask: torch.Tensor, coarsen=(True, True, True)) -> torch.Tensor:
@@ -246,6 +288,21 @@ def _line_apply(line_inv: torch.Tensor, d: int, r: torch.Tensor) -> torch.Tensor
     return z.permute(tuple(int(i) for i in np.argsort(fwd))).contiguous()
 
 
+def line_dim_for(fine_shape, min_extent: int = 3) -> int:
+    """The line-smoothing dim of a hierarchy on ``fine_shape``: exactly one
+    thin (never deeply coarsenable) dim gets exact line solves along it;
+    cubes (-1) keep the point smoother."""
+    thin = [d for d in range(3) if fine_shape[d] <= 2 * min_extent + 1]
+    return thin[0] if len(thin) == 1 else -1
+
+
+def line_split_message(line_dim: int, procs: int) -> str:
+    """Why a rank grid that splits the line dim cannot run MG."""
+    flag = f"-da_processors_{'xyz'[line_dim]}"
+    return (f"{flag} {procs} splits the line dimension of the semicoarsened MG "
+            f"hierarchy, whose line solves need it whole on every rank; set {flag} 1")
+
+
 def build_hierarchy(
     ctan: torch.Tensor,
     bc_mask_soa: torch.Tensor,
@@ -255,6 +312,7 @@ def build_hierarchy(
     min_extent: int = 3,
     A0_soa: torch.Tensor | None = None,
     assemble_fn=None,
+    mesh=None,
 ) -> List[MGLevel]:
     """Level list from fine per-GP tangents (element shape).
 
@@ -264,7 +322,16 @@ def build_hierarchy(
     doubles along coarsened dims.  ``A0_soa`` reuses an already assembled
     fine operator; ``assemble_fn(ctan, B, wg, shape, dsh=)`` is the
     per-level stencil assembler, handed the shape derivatives its level's B
-    is made of (K2's wrapper then reads no B)."""
+    is made of (K2's wrapper then reads no B).
+
+    With ``mesh`` (a rank of an N-process run, ``parallel/mesh.py``) the
+    hierarchy is the one-process hierarchy of the padded node box, as the
+    JAX package's N-device run builds it: level 0 is the rank's block
+    (``A0_soa`` its rows, required; ``ctan`` its node-shaped tangent block;
+    its line_inv from its own rows, exact because the line dim is never
+    split), and every coarser level is whole and replicated on every rank,
+    from the level-1 tangents of ``coarsen_ctan_ranks`` (one all-reduce)
+    and ``bc_mask_soa``, the global padded mask."""
     if assemble_fn is None:
         assemble_fn = assemble_stencil_slab
     levels: List[MGLevel] = []
@@ -273,14 +340,18 @@ def build_hierarchy(
     cur_mask = bc_mask_soa
     wg0 = spacing[0] * spacing[1] * spacing[2] / 8.0
     cur_spacing = (1.0, 1.0, 1.0) if ref_quirk else tuple(spacing)
-    fine_shape = tuple(n + 1 for n in ctan.shape[:3])
-    # exactly one thin (never deeply coarsenable) dim -> exact line solves
-    # along it; cubes keep the point smoother
-    thin = [d for d in range(3) if fine_shape[d] <= 2 * min_extent + 1]
-    line_dim = thin[0] if len(thin) == 1 else -1
+    if mesh is None:
+        fine_shape = tuple(n + 1 for n in ctan.shape[:3])
+    else:
+        fine_shape = tuple(mesh.node_shape)
+        if A0_soa is None:
+            raise ValueError("a rank's hierarchy needs its level-0 rows A0_soa")
+    line_dim = line_dim_for(fine_shape, min_extent)
+    if mesh is not None and line_dim >= 0 and mesh.split[line_dim]:
+        raise ValueError(line_split_message(line_dim, mesh.grid.procs[line_dim]))
     lev = 0
     while True:
-        shape = tuple(n + 1 for n in cur_ctan.shape[:3])
+        shape = fine_shape if lev == 0 else tuple(n + 1 for n in cur_ctan.shape[:3])
         vol = cur_spacing[0] * cur_spacing[1] * cur_spacing[2]
         wg = wg0 * vol if ref_quirk else vol / 8.0
         if lev == 0 and A0_soa is not None:
@@ -294,11 +365,12 @@ def build_hierarchy(
                     val_unit=torch.zeros(shape + (3,), dtype=dtype, device=device),
                 ),
             )
+        rank_rows = mesh is not None and lev == 0
         levels.append(
             MGLevel(
                 A_soa=A_soa,
                 inv_diag=_inv3x3_soa(A_soa[DIAG_OFFSET]),
-                bc_mask=cur_mask,
+                bc_mask=cur_mask[(slice(None),) + mesh.slices()] if rank_rows else cur_mask,
                 line_inv=_build_line_inv(A_soa, line_dim) if line_dim >= 0 else None,
                 line_dim=line_dim,
             )
@@ -308,21 +380,23 @@ def build_hierarchy(
         do = tuple(n > min_extent for n in shape)
         if not any(do):
             break
-        cur_ctan = coarsen_ctan(cur_ctan, do)
+        cur_ctan = coarsen_ctan_ranks(ctan, do, mesh) if rank_rows else coarsen_ctan(cur_ctan, do)
         cur_mask = _sample_coarse(cur_mask, do)
         cur_spacing = tuple(2.0 * h if c else h for h, c in zip(cur_spacing, do))
         lev += 1
     return levels
 
 
-def _rb_mask(level: MGLevel, color: int) -> torch.Tensor:
+def _rb_mask(level: MGLevel, color: int, origin=(0, 0, 0)) -> torch.Tensor:
     """Checkerboard mask over the two dims perpendicular to the line dim,
-    broadcastable against (3, nx, ny, nz)."""
+    broadcastable against (3, nx, ny, nz); the colour is the parity of the
+    global index, the level's first node being at ``origin`` (a rank's
+    block start)."""
     d = level.line_dim
     sp = level.A_soa.shape[-3:]
     perp = [i for i in range(3) if i != d]
-    ia = np.arange(sp[perp[0]])
-    ib = np.arange(sp[perp[1]])
+    ia = np.arange(sp[perp[0]]) + origin[perp[0]]
+    ib = np.arange(sp[perp[1]]) + origin[perp[1]]
     grid = (ia[:, None] + ib[None, :]) % 2 == color
     shape = [1, 1, 1]
     shape[perp[0]] = sp[perp[0]]
@@ -387,6 +461,7 @@ def make_mg_preconditioner(
     coarse_sweeps: int = 20, mv_for: Optional[Callable] = None,
     coarse_direct: bool = True, transfer_order: Optional[int] = None,
     dtype: Optional[torch.dtype] = None,
+    mesh=None,
 ):
     """Fixed symmetric V(nu,nu)-cycle closure z = M^{-1} r for PCG.
 
@@ -403,11 +478,30 @@ def make_mg_preconditioner(
     the JAX package does, then widened exactly where it is applied.
 
     The transfer matrices and colour masks are built here, once per
-    hierarchy, so a V-cycle issues device work only."""
+    hierarchy, so a V-cycle issues device work only.
+
+    With ``mesh`` the levels are a rank's (``build_hierarchy(mesh=)``):
+    level 0 is the rank's block, smoothed with ``stencil_matvec_local``
+    (halo exchange + K1) and coloured by global parity; the 0->1
+    restriction applies the rank's rows of each 1-D P and sums the coarse
+    vector over the ranks (one all-reduce per V-cycle), the prolongation
+    the same rows with no traffic; the coarse levels run whole on every
+    rank, so every rank posts the same collectives in the same order."""
     n_levels = len(levels)
     if dtype is None:
         dtype = levels[0].A_soa.dtype
     mvs = [stencil_matvec_soa if mv_for is None else mv_for(lv) for lv in levels]
+    shapes = [tuple(lv.A_soa.shape[-3:]) for lv in levels]
+    rb_origin = (0, 0, 0)
+    if mesh is not None:
+        if n_levels < 2:
+            raise ValueError("MG across ranks needs a coarse level; the padded node box "
+                             f"{mesh.node_shape} does not coarsen")
+        from macroc_tpu_torch.parallel.halo import stencil_matvec_local
+
+        mvs[0] = partial(stencil_matvec_local, mesh=mesh)
+        shapes[0] = tuple(mesh.node_shape)
+        rb_origin = mesh.start
     coarse_inv = None
     if coarse_direct:
         Ac = levels[-1].A_soa
@@ -416,17 +510,21 @@ def make_mg_preconditioner(
     if transfer_order is None:
         # cubic on semicoarsened pancakes, linear on cubes
         transfer_order = 3 if levels[0].line_dim >= 0 else 1
+    device = levels[0].A_soa.device
     mats = [
-        transfer_matrices(
-            fine.A_soa.shape[-3:], coarse.A_soa.shape[-3:], transfer_order,
-            dtype, fine.A_soa.device,
-        )
-        for fine, coarse in zip(levels[:-1], levels[1:])
+        transfer_matrices(fine, coarse, transfer_order, dtype, device)
+        for fine, coarse in zip(shapes[:-1], shapes[1:])
     ]
+    if mesh is not None:
+        mats[0] = _rank_rows(mats[0], mesh, dtype, device)
     rbs = [
-        (_rb_mask(lv, 0), _rb_mask(lv, 1)) if lv.line_dim >= 0 else None
-        for lv in levels
+        (_rb_mask(lv, 0, o), _rb_mask(lv, 1, o)) if lv.line_dim >= 0 else None
+        for lv, o in zip(levels, [rb_origin] + [(0, 0, 0)] * (n_levels - 1))
     ]
+
+    def restrict0(res):
+        rc = _restrict_with(res, mats[0])
+        return rc if mesh is None else mesh.comm.sum(rc)
 
     def vcycle(l: int, r: torch.Tensor) -> torch.Tensor:
         level = levels[l]
@@ -438,7 +536,7 @@ def make_mg_preconditioner(
                            mvs[l], rb=rbs[l])
         x = _smooth(level, torch.zeros_like(r), r, nu, omega, mvs[l], rb=rbs[l])
         res = r - mvs[l](level.A_soa, x)
-        rc = _restrict_with(res, mats[l])
+        rc = restrict0(res) if l == 0 else _restrict_with(res, mats[l])
         # coarse Dirichlet rows carry no error
         rc = rc.masked_fill(levels[l + 1].bc_mask, 0.0)
         ec = vcycle(l + 1, rc)

@@ -9,11 +9,14 @@ JAX flatten order of the tree: tuples and lists in order, dataclasses field
 by field, dicts by sorted key, ``None`` and ``()`` empty.  For ``(u,
 state)`` that is ``[u]`` for the elastic engine's ``()`` state, ``[u,
 eps_p, alpha]`` for a J2State and ``[u, eps_p, alpha, micro_u]`` for a
-MicroState.  One device writes one block per leaf as ``proc_0``; the
-reader assembles each leaf from every block that covers it, so a
-checkpoint written by several JAX processes (one block per shard) loads
-here too, as does the legacy single-file ``step_<N>.npz``
-(``leaf_<i>`` arrays).
+MicroState.  One process writes one block per leaf as ``proc_0``; each
+rank of an N-process run writes its block of each leaf, at its place in
+the padded node box, as ``proc_<rank>``.  The reader assembles each leaf,
+or a rank's block of it, from every block that covers it, so a checkpoint
+moves between rank counts and between the packages (several JAX
+processes write one block per shard), as does the legacy single-file
+``step_<N>.npz`` (``leaf_<i>`` arrays).  ``ckpt_dir`` must be one
+directory that every rank sees.
 
 Publication is atomic: the files are written into ``step_<N>.writing/``
 and renamed; an existing ``step_<N>`` is moved to ``step_<N>.old`` first
@@ -75,40 +78,53 @@ def _host(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
-def save(ckpt_dir: str, step: int, tree: Any) -> str:
-    """Save ``tree`` as ``ckpt_dir/step_<step>/`` (one process, one block
-    per leaf).  Returns the published directory."""
+def save(ckpt_dir: str, step: int, tree: Any, mesh=None) -> str:
+    """Save ``tree`` as ``ckpt_dir/step_<step>/``: one block per leaf.
+    With ``mesh`` (a rank of an N-process run) every rank writes its own
+    ``proc_<rank>`` with its blocks at their global start and gathers
+    nothing; rank 0 clears a stale staging dir before a barrier and
+    publishes after one (``macroc_tpu/utils/checkpoint.py:77-132``).  Every
+    rank calls it.  Returns the published directory."""
+    comm = None if mesh is None else mesh.comm
+    pid = 0 if comm is None else comm.rank
     final = os.path.join(ckpt_dir, f"step_{step}")
     staging = final + ".writing"
-    # a crashed earlier save may have left stale files in the staging dir
-    if os.path.isdir(staging):
+    # a crashed earlier save (maybe under another rank count) may have left
+    # stale files in the staging dir
+    if pid == 0 and os.path.isdir(staging):
         shutil.rmtree(staging)
-    os.makedirs(staging)
+    if comm is not None:
+        comm.barrier()
+    os.makedirs(staging, exist_ok=True)
     index: Dict[str, Any] = {"blocks": []}
     arrays: Dict[str, np.ndarray] = {}
     for i, leaf in enumerate(flatten(tree)):
         data = _host(leaf)
+        start = [0] * data.ndim if mesh is None else list(mesh.start) + [0] * (data.ndim - 3)
         key = f"l{i}_b0"
         arrays[key] = data
-        index["blocks"].append(
-            dict(leaf=i, key=key, start=[0] * data.ndim, shape=list(data.shape))
-        )
-    npz_tmp = os.path.join(staging, "proc_0.npz.tmp")
+        index["blocks"].append(dict(leaf=i, key=key, start=start, shape=list(data.shape)))
+    npz_tmp = os.path.join(staging, f"proc_{pid}.npz.tmp")
     with open(npz_tmp, "wb") as f:
         np.savez(f, **arrays)
-    os.replace(npz_tmp, os.path.join(staging, "proc_0.npz"))
-    with open(os.path.join(staging, "proc_0.json"), "w") as f:
+    os.replace(npz_tmp, os.path.join(staging, f"proc_{pid}.npz"))
+    with open(os.path.join(staging, f"proc_{pid}.json"), "w") as f:
         json.dump(index, f)
-    # overwrite without a destruction window: a crash at any point leaves
-    # one complete copy on disk (step_<N> or step_<N>.old)
-    old = final + ".old"
-    if os.path.isdir(old):
-        shutil.rmtree(old)
-    if os.path.isdir(final):
-        os.replace(final, old)
-    os.replace(staging, final)
-    if os.path.isdir(old):
-        shutil.rmtree(old)
+    if comm is not None:
+        comm.barrier()
+    if pid == 0:
+        # overwrite without a destruction window: a crash at any point
+        # leaves one complete copy on disk (step_<N> or step_<N>.old)
+        old = final + ".old"
+        if os.path.isdir(old):
+            shutil.rmtree(old)
+        if os.path.isdir(final):
+            os.replace(final, old)
+        os.replace(staging, final)
+        if os.path.isdir(old):
+            shutil.rmtree(old)
+    if comm is not None:
+        comm.barrier()
     return final
 
 
@@ -184,34 +200,60 @@ def _np_dtype(like):
     return np.asarray(like).dtype
 
 
-def load(path: str, like: Any) -> Any:
+def load(path: str, like: Any, mesh=None) -> Any:
     """Load a tree saved by :func:`save` or by the JAX package, with
     ``like`` giving the structure, shapes, dtypes and devices.  Takes the
-    ``step_<N>/`` directory format and the legacy single-file npz."""
+    ``step_<N>/`` directory format and the legacy single-file npz.
+
+    With ``mesh`` (a rank of an N-process run; every rank calls it) the
+    leaves of ``like`` are the rank's blocks of the padded node box and
+    each rank reads only its block's slice, from whichever files cover it:
+    a checkpoint moves between rank counts.  A slice that no saved block
+    covers (the padding of a box the writer did not pad) raises
+    ValueError on every rank, as the JAX reader does; nothing is filled
+    in."""
     leaves = flatten(like)
     new = []
     if os.path.isdir(path):
         reader = _BlockReader(path)
+        error = None
         try:
             for i, leaf in enumerate(leaves):
                 shape = tuple(leaf.shape) if hasattr(leaf, "shape") else ()
-                full = reader.read(i, (slice(None),) * len(shape), shape,
-                                   _np_dtype(leaf))
-                new.append(_like(leaf, full))
+                index = (slice(None),) * len(shape)
+                if mesh is not None:
+                    shape = tuple(mesh.node_shape) + shape[3:]
+                    index = tuple(mesh.slices()) + index[3:]
+                new.append(_like(leaf, reader.read(i, index, shape, _np_dtype(leaf))))
+        except ValueError as e:
+            if mesh is None:
+                raise
+            error = e
         finally:
             reader.close()
+        if mesh is not None:
+            # the ranks agree before any of them goes on to a collective
+            failed = int(mesh.comm.sum(torch.tensor([int(error is not None)],
+                                                    device=mesh.comm.device)))
+            if failed:
+                raise error or ValueError(
+                    f"checkpoint {path}: another rank's block is not fully covered by "
+                    "the saved blocks")
     else:
         with np.load(path) as data:
             for i, leaf in enumerate(leaves):
-                full = np.asarray(data[f"leaf_{i}"]).astype(_np_dtype(leaf))
-                new.append(_like(leaf, full))
+                full = np.asarray(data[f"leaf_{i}"])
+                if mesh is not None:
+                    full = mesh.local(full)
+                new.append(_like(leaf, np.ascontiguousarray(full).astype(_np_dtype(leaf))))
     return unflatten(like, iter(new))
 
 
-def load_latest(ckpt_dir: str, like: Any) -> Optional[Tuple[int, Any]]:
+def load_latest(ckpt_dir: str, like: Any, mesh=None) -> Optional[Tuple[int, Any]]:
     """(step, tree) of the newest checkpoint in ``ckpt_dir``, or None.  A
     ``step_<N>.old`` directory counts when ``step_<N>`` is absent (a crash
-    between the move-aside and the publish of an overwrite)."""
+    between the move-aside and the publish of an overwrite).  ``mesh``:
+    as in :func:`load`."""
     if not os.path.isdir(ckpt_dir):
         return None
     cands: Dict[int, Tuple[int, str]] = {}  # step -> (priority, path)
@@ -230,4 +272,4 @@ def load_latest(ckpt_dir: str, like: Any) -> Optional[Tuple[int, Any]]:
     if not cands:
         return None
     best = max(cands)
-    return best, load(cands[best][1], like)
+    return best, load(cands[best][1], like, mesh)

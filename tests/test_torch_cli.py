@@ -2,7 +2,7 @@
 CPU (MACROC_PLATFORM=cpu) against ``python -m macroc_tpu`` at float64 on
 one CTest grid, with CG, GMRES and the matrix-free operator, and on the FE²
 golden's launch line (tests/test_cli.py is the model); the flags the port
-accepts, and those it refuses under more than one rank."""
+accepts, and the one rank grid it refuses under more than one rank."""
 
 import os
 import subprocess
@@ -124,23 +124,25 @@ def test_one_process_with_a_pinned_rank_grid_raises(monkeypatch):
     (["-resume"], "-resume"),
 ])
 def test_unsupported_flags_named(flags, named):
-    """Under more than one rank the port refuses MG, the matrix-free
-    operator, micro-FE, VTU output, checkpoints and resume, each by name;
-    one process runs them all."""
+    """MG, the matrix-free operator, micro-FE, VTU output, checkpoints and
+    resume, which the port once refused under more than one rank, each run
+    under 2 ranks as on one process (tests/test_torch_dist_*.py run them)."""
     cfg = cli.parse_cli(["-da_grid_x", "5", "-da_grid_y", "3", "-da_grid_z", "3"] + flags)
-    missing = cli.unsupported(cfg, world=2)
-    assert len(missing) == 1 and missing[0].startswith(named), missing
+    assert cli.unsupported(cfg, world=2) == [], named
     assert cli.unsupported(cfg) == []
     assert cli.unsupported(cli.parse_cli(FLAGS[:-2]), world=2) == []
 
 
 def test_unsupported_raises_before_the_run(monkeypatch):
     """cli.run turns the list into NotImplementedError under a process
-    group, before anything runs."""
+    group, before anything runs: the one limit left, MG on a rank grid
+    that splits the line dimension of the pancake's hierarchy."""
     monkeypatch.setattr(cli.distributed, "world", lambda: 2)
     monkeypatch.setenv("MACROC_PLATFORM", "cpu")
-    with pytest.raises(NotImplementedError, match="-pc_type mg under 2 ranks"):
-        cli.run(FLAGS + ["-pc_type", "mg"])
+    with pytest.raises(NotImplementedError, match="-da_processors_y 2 splits the line dim"):
+        cli.run(FLAGS + ["-da_grid_x", "17", "-da_grid_z", "17", "-pc_type", "mg",
+                         "-da_processors_x", "1", "-da_processors_y", "2",
+                         "-da_processors_z", "1"])
 
 
 @pytest.mark.parametrize("flags", [

@@ -30,13 +30,11 @@ Plus a 2-rank CLI run: rank 0 alone narrates and writes info.dat and
 gauss_evolution.dat, whose columns are the JAX per-rank counts.
 """
 
-import json
-import os
-
 import numpy as np
 import pytest
 import torch
 
+import _torch_dist_common as common
 from test_torch_halo import launch_ranks
 
 torch.set_num_threads(1)
@@ -59,119 +57,11 @@ YIELDING = ["plastic_5x3x3", "circle_9x3x9"]
 ELASTIC = ["circle_5x3x3", "bending_9x5x5", "degenerate_5x3x3", "gmres_9x5x5"]
 
 
-def _steps_torch(p, cfg):
-    """Run cfg.ts steps of a port MacroProblem; per-step records and the
-    final (u, state) as global numpy arrays (a collective on a rank)."""
-    from macroc_tpu_torch.problem import fields_to_numpy
-
-    u, state = p.init_fields()
-    steps = []
-    for ts in range(cfg.ts):
-        u, state, d = p.time_step(u, state, cfg.displacement(ts))
-        counts = p.nonlinear_counts(d.non_linear)
-        steps.append(dict(res_norms=[float(v) for v in d.res_norms[:d.n_homogenize]],
-                          ksp_its=[int(v) for v in d.ksp_its[:d.n_solves]],
-                          force=d.force, f_trial_max=d.f_trial_max,
-                          nl_gps=int(counts.sum()), per_rank=counts.tolist(),
-                          converged=bool(d.converged)))
-    u_g, eps_p, alpha = fields_to_numpy(u, state, p.mesh)
-    return steps, p.unpad_u(u_g), eps_p
-
-
-def _rank_main(name, out_dir):
-    """One rank of the N-rank run of CONFIGS[name]; rank 0 saves it."""
-    torch.set_num_threads(1)
-    from macroc_tpu_torch.config import MacroConfig
-    from macroc_tpu_torch.parallel import distributed
-    from macroc_tpu_torch.problem import MacroProblem
-
-    assert distributed.maybe_initialize()
-    cfg = MacroConfig(**CONFIGS[name][1])
-    p = MacroProblem(cfg, "cpu")
-    steps, u, eps_p = _steps_torch(p, cfg)
-    if distributed.is_primary():
-        np.savez(os.path.join(out_dir, "fields.npz"), u=u, eps_p=eps_p)
-        with open(os.path.join(out_dir, "steps.json"), "w") as f:
-            json.dump(dict(steps=steps, procs=list(p.grid.procs), node_shape=p.node_shape), f)
-    distributed.shutdown()
-
-
-def _steps_jax(name):
-    """The JAX package's N-device run of CONFIGS[name] (test_dist.py's
-    pattern): per-step records, the unpadded u and the padded eps_p."""
-    import jax
-    import jax.numpy as jnp
-    from macroc_tpu.config import MacroConfig
-    from macroc_tpu.forces import per_rank_nonlinear_counts
-    from macroc_tpu.parallel import make_grid_mesh, shard_problem_fields
-    from macroc_tpu.problem import MacroProblem
-
-    n, flags = CONFIGS[name]
-    cfg = MacroConfig(**flags)
-    p = MacroProblem(cfg, n_devices=n)
-    u, state = shard_problem_fields(make_grid_mesh(p.grid), *p.init_fields())
-    step = jax.jit(p.time_step)
-    steps = []
-    for ts in range(cfg.ts):
-        u, state, d = step(u, state, jnp.asarray(cfg.displacement(ts), p.dtype))
-        res = np.asarray(d.res_norms)
-        nsol = int(d.n_solves)
-        counts = per_rank_nonlinear_counts(np.asarray(d.non_linear), p.grid)
-        steps.append(dict(res_norms=res[~np.isnan(res)].tolist(),
-                          ksp_its=np.asarray(d.ksp_its)[:nsol].tolist(),
-                          force=float(d.force), f_trial_max=float(d.f_trial_max),
-                          nl_gps=int(counts.sum()), per_rank=counts.tolist(),
-                          converged=bool(d.converged)))
-    return dict(steps=steps, procs=list(p.grid.procs)), np.asarray(p.unpad_u(u)), \
-        np.asarray(state.eps_p)
-
-
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """{name: (ranks, one_process, jax)}, each a (record, u, eps_p) triple,
-    computed on first use."""
-    from macroc_tpu_torch.config import MacroConfig
-    from macroc_tpu_torch.problem import MacroProblem
-
-    cache = {}
-
-    def get(name):
-        if name not in cache:
-            n, flags = CONFIGS[name]
-            out = tmp_path_factory.mktemp(name)
-            launch_ranks(n, f"import test_torch_dist as t; t._rank_main({name!r}, {str(out)!r})")
-            with open(out / "steps.json") as f:
-                rec = json.load(f)
-            f = np.load(out / "fields.npz")
-            ranks = (rec, f["u"], f["eps_p"])
-            cfg1 = MacroConfig(**{k: v for k, v in flags.items() if not k.startswith("procs")})
-            steps1, u1, e1 = _steps_torch(MacroProblem(cfg1, "cpu"), cfg1)
-            cache[name] = (ranks, (dict(steps=steps1), u1, e1), _steps_jax(name))
-        return cache[name]
-
-    return get
-
-
-def _assert_exact(got, want):
-    """Elastic steps: test_multiprocess.py's decomposition bounds."""
-    assert len(got["steps"]) == len(want["steps"])
-    for gs, ws in zip(got["steps"], want["steps"]):
-        assert gs["ksp_its"] == ws["ksp_its"]
-        assert gs["converged"] == ws["converged"] and gs["nl_gps"] == ws["nl_gps"] == 0
-        assert np.allclose(gs["res_norms"], ws["res_norms"], rtol=1e-8, atol=1e-12)
-        assert np.isclose(gs["force"], ws["force"], rtol=1e-8, atol=1e-12)
-
-
-def _assert_roundoff(got, want):
-    """Yielding steps: tests/test_torch_golden.py's roundoff bounds."""
-    assert len(got["steps"]) == len(want["steps"])
-    for gs, ws in zip(got["steps"], want["steps"]):
-        assert len(gs["ksp_its"]) == len(ws["ksp_its"])
-        assert gs["converged"] == ws["converged"] and gs["nl_gps"] == ws["nl_gps"]
-        assert np.isclose(gs["res_norms"][0], ws["res_norms"][0], rtol=1e-7, atol=1e-12)
-        assert all(abs(a - b) <= 6 for a, b in zip(gs["ksp_its"], ws["ksp_its"]))
-        assert np.isclose(gs["force"], ws["force"], rtol=1e-5, atol=1e-12)
-        assert np.isclose(gs["f_trial_max"], ws["f_trial_max"], rtol=1e-5, atol=1e-12)
+    computed on first use (tests/_torch_dist_common.py)."""
+    return common.runner(__name__, tmp_path_factory)
 
 
 @pytest.mark.parametrize("against", ["one_process", "jax"])
@@ -184,8 +74,8 @@ def test_ranks_match_on_elastic_steps(runs, name, against):
         assert rec["procs"] == [1, 2, 2]
     if name != "circle_5x3x3":
         assert sum(len(s["ksp_its"]) for s in rec["steps"]) >= 1, "no solve to compare"
-    _assert_exact(rec, ref_rec)
-    assert np.allclose(u, ref_u, rtol=0, atol=1e-8 * max(np.abs(ref_u).max(), 1e-300))
+    common.assert_exact(rec, ref_rec)
+    common.assert_exact_u(u, ref_u)
     if against == "jax":
         # the same decomposition, so the same padded state layout
         np.testing.assert_allclose(eps_p, jx[2], rtol=0, atol=1e-12)
@@ -197,7 +87,7 @@ def test_ranks_match_on_yielding_steps(runs, name, against):
     (rec, u, _), one, jx = runs(name)
     ref_rec, ref_u, _ = one if against == "one_process" else jx
     assert all(s["nl_gps"] > 0 for s in ref_rec["steps"][1:]), "no GP yielded"
-    _assert_roundoff(rec, ref_rec)
+    common.assert_roundoff(rec, ref_rec)
     assert np.allclose(u, ref_u, rtol=0, atol=1e-6 * np.abs(ref_u).max())
     assert [s["per_rank"] for s in rec["steps"]] == [s["per_rank"] for s in jx[0]["steps"]]
 
