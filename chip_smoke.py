@@ -61,13 +61,19 @@ non-zero without the result line):
                rank blocks of this phase's lines and of 128^3 over 2, 4 and
                8 ranks, f32 and f64, against their plain versions; the
                host cost of one all-reduce, halo exchange and K1 halo call,
-               and of MG's level-1 tangent and coarse-vector all-reduces;
-               then ``macroc_tpu_torch.cli`` as separate processes, each
+               and of MG's level-1 tangent and coarse-vector all-reduces,
+               and of MG's line gather on the production grid split along
+               y; then ``macroc_tpu_torch.cli`` as separate processes, each
                with its launch counters and peak memory:
                scripts/pod_run.sh's 100^3 line as written (2 steps, MG,
                f32) as 2 ranks sharing the card (gloo by the backend rule)
-               against 1 process; the production FE² line at 2 ranks
-               against 1; the 10x3x10 full-solve FE² line's MicroState
+               against 1 process; linesplit: production_run.sh's J2 line
+               (3 steps, MG with lines along y) on rank grids that split y,
+               (1,2,1) as 2 ranks and (2,2,1) as 4, against 1 process, the
+               automatic 2-rank split and each other; the production FE²
+               line at 2 ranks against 1 (with each rank's micro state and
+               per-homogenize full solves and memory); the 10x3x10
+               full-solve FE² line's MicroState
                checkpoint written by 2 ranks and resumed on 1 and on 2;
                and the f64 bending_plastic_5x3x3 golden line at 2 ranks
                (with -vtu_freq 1: PVTU pieces per rank) against 1 process
@@ -872,6 +878,17 @@ PLASTIC_5 = [
 # another order through the solves), yielded-GP counts exactly, KSP its per
 # solve within 2% or 2
 POD_RTOL = 1e-4
+# scripts/production_run.sh's line as written (J2, pc_type auto -> MG with
+# lines along y), 3 steps, f32, on rank grids that split the line dimension:
+# 50x3x50 pads y to 4, which coarsens once, so the hierarchy differs from
+# one process's and from the automatic 2-rank split's (1,1,2).  Solves of
+# one system to ksp_rtol (tests/test_dist.py:129-135): the same Newton
+# iterations, info.dat rows within POD_RTOL and KSP its per solve within
+# LINESPLIT_KSP (absolute, relative) of the unpadded runs; the two split
+# grids share the padded hierarchy, so within 2% or 2 of each other
+LINESPLIT = PRODUCTION_J2 + ["-ts", "3"]
+LINESPLIT_GRIDS = [(1, 2, 1), (2, 2, 1)]
+LINESPLIT_KSP = (4, 0.15)
 # the per-rank kernel shapes against the plain versions, relative: K2 (f32,
 # f64) as PR 5 held it; K1 to the same f32 bound and ~9 f64 ulps (its 81
 # products per entry are summed in another order than the plain version's;
@@ -879,11 +896,14 @@ POD_RTOL = 1e-4
 DIST_TOLS = {"K2": {torch.float32: 1e-6, torch.float64: 1e-15},
              "K1": {torch.float32: 1e-6, torch.float64: 2e-15}}
 # one rank of a run: macroc_tpu_torch.cli with the kernels' launch counters
-# set to 0 before it; prints its history, counts and process-group backend
+# set to 0 before it; prints its history, counts, process-group backend,
+# the bytes of its state and, per micro-FE homogenize, the GPs solved in
+# full and the device memory held after it and at the peak so far (GiB)
 RANK_PROGRAM = r"""
 import json, os, sys
 import torch
 from macroc_tpu_torch import cli
+from macroc_tpu_torch.constitutive.microfe import MicroFEEngine
 from macroc_tpu_torch.ops.assembly import assemble_stencil_soa_kernel as k2
 from macroc_tpu_torch.ops.stencil_spmv import stencil_matvec as k1
 from macroc_tpu_torch.parallel import distributed
@@ -891,13 +911,24 @@ from macroc_tpu_torch.parallel import distributed
 backend = []
 shutdown = distributed.shutdown
 distributed.shutdown = lambda: (backend.append(torch.distributed.get_backend()), shutdown())
+micro = []
+homogenize = MicroFEEngine.homogenize
+
+def watched(self, eps, state):
+    r = homogenize(self, eps, state)
+    micro.append([int((r.cost > 0).sum()), round(torch.cuda.memory_allocated() / 2**30, 3),
+                  round(torch.cuda.max_memory_allocated() / 2**30, 3)])
+    return r
+
+MicroFEEngine.homogenize = watched
 k1.launches = k1.narrow_launches = 0
 k2.launches = 0
 result = cli.run(json.loads(sys.argv[1]))
 print("RANK " + json.dumps(dict(
     rank=int(os.environ.get("MACROC_PROCESS_ID", "0")), backend=(backend or [None])[0],
     K1=k1.launches, K2=k2.launches, history=result["history"], phases=result["phases"],
-    state=type(result["state"]).__name__,
+    state=type(result["state"]).__name__, micro=micro,
+    state_gib=sum(t.numel() * t.element_size() for t in vars(result["state"]).values()) / 2**30,
     peak_gib=torch.cuda.max_memory_allocated() / 2**30)), flush=True)
 """
 
@@ -950,6 +981,11 @@ out = dict(rank=mesh.comm.rank, backend=mesh.comm.backend,
            halo_exchange_ms=per_call_ms(lambda: halo.halo_exchange(x, mesh, dims=(1, 2, 3)), 100),
            k1_halo_ms=per_call_ms(lambda: stencil_matvec(A, xe, halo=True), 100),
            matvec_local_ms=per_call_ms(lambda: halo.stencil_matvec_local(A, x, mesh), 100))
+if procs[1] > 1:
+    # MG's line gather of a residual along a split y (one per colour
+    # half-sweep on level 0)
+    out.update(line_gather_bytes=x.numel() * 4 * procs[1],
+               line_gather_ms=per_call_ms(lambda: halo.axis_gather(x, mesh, 1, 2), 100))
 print("RANK " + json.dumps(out), flush=True)
 distributed.shutdown()
 """
@@ -1014,23 +1050,25 @@ def summed(records):
     return {k: sum(r[k] for r in records) for k in ("K1", "K2")}
 
 
-def compare_ranks(tag, h1, h2, t1, t2, rtol):
-    """N ranks against 1 process: the same Newton iterations, KSP its per
-    solve within 2% or 2, info.dat rows (yielded GPs exactly) within
-    ``rtol``; returns the worst row deviation."""
+def compare_ranks(tag, h1, h2, t1, t2, rtol, ksp=(2, 0.02), names=("1 process", "2 ranks")):
+    """The run ``names[1]`` against ``names[0]``: the same Newton
+    iterations, KSP its per solve within ``ksp[0]`` or the fraction
+    ``ksp[1]``, info.dat rows (yielded GPs exactly) within ``rtol``;
+    returns the worst row deviation."""
     check([len(s["res_norms"]) for s in h1] == [len(s["res_norms"]) for s in h2],
           f"{tag}: Newton iteration counts differ")
     its = lambda h: [k for s in h for k in s["ksp_its"]]
     check(len(its(h1)) == len(its(h2)) and all(
-        abs(a - b) <= max(2, 0.02 * a) for a, b in zip(its(h1), its(h2))),
+        abs(a - b) <= max(ksp[0], ksp[1] * a) for a, b in zip(its(h1), its(h2))),
         f"{tag}: KSP its {its(h2)} vs {its(h1)}")
     check(len(t1) == len(t2) and all(r[5] == q[5] for r, q in zip(t1, t2)),
           f"{tag}: info.dat rows or yielded-GP counts differ")
     worst = max(abs(a - b) / max(abs(a), 1e-30) for r, q in zip(t1, t2) for a, b in zip(r, q))
-    log(f"[{tag}] 2 ranks vs 1 process: Newton its {[len(s['res_norms']) for s in h2]}, KSP its "
-        f"{its(h2)} vs {its(h1)}, info.dat max rel dev {worst:.3e} (bound {rtol:g}); per KSP "
-        f"iteration {step_ms_per_its(h2):.4f} ms on 2 ranks vs {step_ms_per_its(h1):.4f} ms on "
-        "1 (two ranks sharing one card: not a scaling figure)")
+    log(f"[{tag}] {names[1]} vs {names[0]}: Newton its {[len(s['res_norms']) for s in h2]}, "
+        f"KSP its {its(h2)} vs {its(h1)} (bound {ksp[0]} or {ksp[1]:.0%}), info.dat max rel dev "
+        f"{worst:.3e} (bound {rtol:g}); per KSP iteration {step_ms_per_its(h2):.4f} ms on "
+        f"{names[1]} vs {step_ms_per_its(h1):.4f} ms on {names[0]} (ranks sharing one card: "
+        "not a scaling figure)")
     check(worst <= rtol, f"{tag}: info.dat rows deviate by {worst:.3e}")
     return worst
 
@@ -1048,6 +1086,7 @@ def dist_shapes():
              ("plastic 5x3x3", (5, 3, 3), 2, (None,) * 3),
              ("fe2 production 50x3x50", (50, 3, 50), 2, (None,) * 3),
              ("fe2 full 10x3x10", (10, 3, 10), 2, (None,) * 3)]
+    grids += [("linesplit 50x3x50", (50, 3, 50), int(np.prod(p)), p) for p in LINESPLIT_GRIDS]
     grids += [("128^3", (128,) * 3, n, (None,) * 3) for n in (2, 4, 8)]
     return [(f"{label} over {n}", g, decide_processor_grid(n, *g, fixed=fixed))
             for label, g, n, fixed in grids]
@@ -1110,6 +1149,14 @@ def phase_dist(dev):
             f"({r['level1_bytes']} B, once per Newton iteration) {r['level1_allreduce_ms']:.4f}, "
             f"restricted vector all-reduce ({r['restrict_bytes']} B, once per V-cycle) "
             f"{r['restrict_allreduce_ms']:.4f}")
+    # MG's line gather on the production grid split along y
+    grid_args = json.dumps([50, 3, 50, list(LINESPLIT_GRIDS[0])])
+    for r in spawn_ranks("dist comm linesplit", COMM_PROGRAM, grid_args, 2):
+        log(f"[dist comm linesplit] rank {r['rank']} of 2 ranks {LINESPLIT_GRIDS[0]} "
+            f"({r['backend']}, sharing the card), host ms per call: line gather of the residual "
+            f"({r['line_gather_bytes']} B, 4 nu per V-cycle) {r['line_gather_ms']:.4f}, halo "
+            f"exchange of x {r['halo_exchange_ms']:.4f}, 2-element all-reduce "
+            f"{r['allreduce_ms']:.4f}, restricted vector all-reduce {r['restrict_allreduce_ms']:.4f}")
     return dist_lines(), k1_ms
 
 
@@ -1125,6 +1172,7 @@ def dist_lines():
               "(two ranks share the one card)")
         compare_ranks("dist pod_run", r1["history"], r2[0]["history"], info_table(one),
                       info_table(two), POD_RTOL)
+    launches.update(linesplit_lines())
     with tempfile.TemporaryDirectory() as one, tempfile.TemporaryDirectory() as two:
         r1 = launch_ranks("dist fe2 production 1 process", FE2_PRODUCTION, 1, one)[0]
         r2 = launch_ranks("dist fe2 production 2 ranks", FE2_PRODUCTION, 2, two)
@@ -1134,6 +1182,10 @@ def dist_lines():
         log(f"[dist fe2 production] peak device memory per rank "
             f"{[round(r['peak_gib'], 2) for r in r2]} GiB on 2 ranks against "
             f"{r1['peak_gib']:.2f} GiB on 1 process")
+        for r in r2 + [r1]:
+            log(f"[dist fe2 production] rank {r['rank']} of {len(r2) if r is not r1 else 1}: "
+                f"micro state {r['state_gib']:.3f} GiB; per homogenize [GPs solved in full, GiB "
+                f"held after it, peak GiB so far] {r['micro']}")
     with tempfile.TemporaryDirectory() as out:
         # FE2_FULL's checkpoint at step 2 written by 2 ranks (one file each),
         # taken up by 1 process and by 2 ranks, each redoing step 2
@@ -1177,6 +1229,37 @@ def dist_lines():
             check(r[0]["backend"] == "nccl", "dist nccl: the backend rule did not pick NCCL")
     else:
         log(f"[dist] the NCCL run (one card per rank) not made: {torch.cuda.device_count()} card")
+    return launches
+
+
+def linesplit_lines():
+    """The production_run.sh J2 line (MG, lines along y) on the rank grids
+    of LINESPLIT_GRIDS, which split y ((1,2,1) as 2 ranks, (2,2,1) as 4,
+    sharing the card), against 1 process and the automatic 2-rank split;
+    returns each split line's launches, summed over its ranks."""
+    def pinned(p):
+        return LINESPLIT + [v for a, q in zip("xyz", p) for v in (f"-da_processors_{a}", str(q))]
+
+    lines = [("1 process", LINESPLIT, 1), ("auto 2 ranks", LINESPLIT, 2)] + [
+        (f"ranks {p}", pinned(p), int(np.prod(p))) for p in LINESPLIT_GRIDS]
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, flags, n in lines:
+            out = os.path.join(tmp, name.replace(" ", "_"))
+            records = launch_ranks(f"linesplit {name}", flags, n, out)
+            runs[name] = (records[0]["history"], info_table(out), records)
+    launches = {}
+    for p in LINESPLIT_GRIDS:
+        name = f"ranks {p}"
+        h, t, records = runs[name]
+        for ref in ("1 process", "auto 2 ranks"):
+            compare_ranks("linesplit", runs[ref][0], h, runs[ref][1], t, POD_RTOL,
+                          ksp=LINESPLIT_KSP, names=(ref, name))
+        launches["dist_linesplit_" + "".join(map(str, p))] = summed(records)
+    # the split grids share the padded box's hierarchy
+    a, b = (f"ranks {p}" for p in LINESPLIT_GRIDS)
+    compare_ranks("linesplit", runs[a][0], runs[b][0], runs[a][1], runs[b][1], POD_RTOL,
+                  names=(a, b))
     return launches
 
 

@@ -5,8 +5,9 @@ Takes the same flags as ``python -m macroc_tpu`` (``config.parse_cli``).
 CUDA device is present) or ``cpu``, where every kernel runs its plain
 PyTorch version.  ``MACROC_COORDINATOR``, ``MACROC_NUM_PROCESSES`` and
 ``MACROC_PROCESS_ID`` make the process one rank of a domain-decomposed run
-(``parallel/distributed.py``); start one process per rank.  Flags whose
-code paths are not ported yet raise.
+(``parallel/distributed.py``); start one process per rank.  Every
+configuration of ``python -m macroc_tpu`` runs, on one process and under N
+ranks.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import sys
 import torch
 
 from macroc_tpu_torch.config import parse_cli
-from macroc_tpu_torch.driver import Simulation, unsupported  # noqa: F401 (re-export)
+from macroc_tpu_torch.driver import Simulation
 from macroc_tpu_torch.parallel import distributed
 from macroc_tpu_torch.utils.runtime import setup_runtime
 
@@ -36,8 +37,7 @@ def device_from_env() -> torch.device:
 def run(argv=None) -> dict:
     """Parse flags, run the simulation, return Simulation.run()'s result.
     Brings up the process group first when the MACROC_* environment asks
-    for one, and takes it down at the end.  What is not ported for the
-    rank count raises NotImplementedError (``driver.unsupported``)."""
+    for one, and takes it down at the end."""
     setup_runtime()
     started = distributed.maybe_initialize()
     try:

@@ -33,42 +33,16 @@ from macroc_tpu_torch.io.parallel_vtu import assign_pieces, extract_patch, halo_
 from macroc_tpu_torch.io.vtu import OffsetView
 from macroc_tpu_torch.parallel import distributed
 from macroc_tpu_torch.fem.kernels import compute_strains
-from macroc_tpu_torch.grid import make_grid
 from macroc_tpu_torch.parallel.halo import ghosted_blocks
-from macroc_tpu_torch.parallel.mesh import padded_node_shape
-from macroc_tpu_torch.problem import MacroProblem, resolve_solver_plan_torch
+from macroc_tpu_torch.problem import MacroProblem
 from macroc_tpu_torch.solve.cg import KSP_REASON_NAMES
-from macroc_tpu_torch.solve.mg import line_dim_for, line_split_message
 from macroc_tpu_torch.utils import checkpoint as ckpt
 from macroc_tpu_torch.utils.profiling import PhaseTimer, trace
-
-
-def unsupported(cfg: MacroConfig, world: int = 1) -> list:
-    """The reasons this config cannot run on the port over ``world`` ranks
-    (empty: it can).  One limit is left, under ranks only: MG on a rank
-    grid that splits the line dimension of a semicoarsened hierarchy (the
-    JAX package runs it; ROADMAP.md queue 3)."""
-    if world == 1:
-        return []
-    grid = make_grid(cfg, world)
-    # "auto" resolves on the padded node shape, as the step does
-    shape = padded_node_shape(grid)
-    plan = resolve_solver_plan_torch(cfg, shape, "cpu")
-    d = line_dim_for(shape)
-    if plan["pc_type"] == "mg" and plan["operator"] != "matfree" and d >= 0 \
-            and grid.procs[d] > 1:
-        return [f"{line_split_message(d, grid.procs[d])} (under {world} ranks)"]
-    return []
 
 
 class Simulation:
     def __init__(self, cfg: MacroConfig, device,
                  log: Optional[Callable[[str], None]] = None):
-        missing = unsupported(cfg, distributed.world())
-        if missing:
-            raise NotImplementedError(
-                "macroc_tpu_torch does not run this configuration: " + "; ".join(missing)
-            )
         self.cfg = cfg
         self.problem = MacroProblem(cfg, device)
         self.grid = self.problem.grid

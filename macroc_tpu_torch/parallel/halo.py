@@ -13,7 +13,9 @@ point-to-point sends.
                   axes in reverse order;
   fold_high_plane the one-sided fold of node-indexed assembly from owned
                   elements;
-  ghosted_blocks  halo_exchange of width h per axis, for the VTU pieces.
+  ghosted_blocks  halo_exchange of width h per axis, for the VTU pieces;
+  axis_gather     the whole line of blocks along one rank-grid axis on
+                  every rank of it (MG's line solves on a split line dim).
 
 ``assemble_stencil_local`` and ``stencil_matvec_local`` wire them around
 kernels K2 and K1.  The JAX package's ``overlap=True`` matvec is not
@@ -92,6 +94,31 @@ def ghosted_blocks(arrays: Sequence[torch.Tensor], mesh: RankMesh,
             x = exchange_axis(x, mesh, axis, axis, width=w)
         out.append(x)
     return out
+
+
+def axis_gather(x: torch.Tensor, mesh: RankMesh, axis: int, dim: int) -> torch.Tensor:
+    """The blocks ``x`` of the ranks that share this rank's two other
+    rank-grid coordinates (its line group along ``axis``), concatenated
+    along ``dim`` in coordinate order, on every rank of the group.
+
+    p - 1 rounds of ``Comm.shift`` pass the pieces on both ways, each rank
+    forwarding what it received last: every rank posts the same calls in
+    the same order, no sub-communicator exists, and on an unsplit axis (one
+    process included) it is the identity.  Pieces from beyond the grid's
+    ends arrive as zeros and are dropped."""
+    p, c = mesh.grid.procs[axis], mesh.coords[axis]
+    if p == 1:
+        return x
+    lo, hi = mesh.neighbors(axis)
+    pieces = {c: x}
+    up = down = x  # the pieces travelling to higher / lower coordinates
+    for k in range(1, p):
+        up, down = mesh.comm.shift(down, up, lo, hi)
+        if c - k >= 0:
+            pieces[c - k] = up
+        if c + k < p:
+            pieces[c + k] = down
+    return torch.cat([pieces[i] for i in range(p)], dim=dim)
 
 
 def fold_high_plane(xe: torch.Tensor, mesh: RankMesh, axis: int, dim: int) -> torch.Tensor:

@@ -259,32 +259,70 @@ class MGLevel:
     line_dim: int = -1
 
 
-def _build_line_inv(A_soa: torch.Tensor, d: int) -> torch.Tensor:
-    """Dense inverse of the block-tridiagonal line operator along dim d (the
-    stencil couplings with zero displacement in the two other dims)."""
-    n = A_soa.shape[3 + d]
+def _line_rows(A_soa: torch.Tensor, d: int, start: int = 0, n: Optional[int] = None
+               ) -> torch.Tensor:
+    """Rows of the block-tridiagonal line operator along dim d (the stencil
+    couplings with zero displacement in the two other dims), (na, nb, 3b,
+    3n): A_soa's b nodes along d are nodes start .. start+b of a line of n
+    (default: the whole line, start 0).  The couplings of a block's end
+    nodes to the neighbour block's nodes sit in its own rows."""
+    b = A_soa.shape[3 + d]
+    n = b if n is None else n
     perp = [i for i in range(3) if i != d]
     na, nb = A_soa.shape[3 + perp[0]], A_soa.shape[3 + perp[1]]
-    M = torch.zeros((na, nb, 3 * n, 3 * n), dtype=A_soa.dtype, device=A_soa.device)
+    M = torch.zeros((na, nb, 3 * b, 3 * n), dtype=A_soa.dtype, device=A_soa.device)
     for delta in (-1, 0, 1):
         off = [0, 0, 0]
         off[d] = delta
-        # (na, nb, n, 3row, 3col)
+        # (na, nb, b, 3row, 3col)
         blk = A_soa[offset_index(*off)].permute(perp[0] + 2, perp[1] + 2, d + 2, 0, 1)
-        for j in range(n):
-            k = j + delta
+        for j in range(b):
+            k = start + j + delta
             if 0 <= k < n:
                 M[:, :, 3 * j:3 * j + 3, 3 * k:3 * k + 3] = blk[:, :, j]
-    return torch.linalg.inv(M)
+    return M
 
 
-def _line_apply(line_inv: torch.Tensor, d: int, r: torch.Tensor) -> torch.Tensor:
-    """z = T^{-1} r for the line operator along dim d; r is (3,nx,ny,nz)."""
+def _build_line_inv(A_soa: torch.Tensor, d: int) -> torch.Tensor:
+    """Dense inverse of the whole line operator along dim d."""
+    return torch.linalg.inv(_line_rows(A_soa, d))
+
+
+def _build_line_inv_ranks(A_soa: torch.Tensor, d: int, mesh) -> torch.Tensor:
+    """A rank's rows (na, nb, 3b, 3n) of the line inverse along a split dim
+    d: each rank of a line group fills its row block at its global offset,
+    the group gathers them (``axis_gather``), and every rank inverts the
+    whole line as one process does and keeps its rows.  Every rank agrees
+    on success before any goes on, so a line that fails to invert raises on
+    every rank and none smooths with a partial line."""
+    from macroc_tpu_torch.parallel.halo import axis_gather
+
+    s, n = mesh.start[d], mesh.node_shape[d]
+    M = axis_gather(_line_rows(A_soa, d, s, n), mesh, d, 2)
+    error = None
+    try:
+        inv = torch.linalg.inv(M)
+    except torch.linalg.LinAlgError as e:
+        error = e
+    failed = int(mesh.comm.sum(torch.tensor([int(error is not None)], device=A_soa.device)))
+    if failed:
+        raise ValueError(f"the MG line operator along {'xyz'[d]} is singular on {failed} "
+                         "rank(s)") from error
+    return inv[:, :, 3 * s:3 * (s + A_soa.shape[3 + d])].contiguous()
+
+
+def _line_apply(line_inv: torch.Tensor, d: int, r: torch.Tensor, gather=None) -> torch.Tensor:
+    """z = T^{-1} r for the line operator along dim d; r is (3,nx,ny,nz).
+    With ``gather`` (a split line: ``line_inv`` holds the rank's rows),
+    r's line pieces are gathered first and z is the rank's block."""
+    b = r.shape[d + 1]
+    if gather is not None:
+        r = gather(r)
     perp = [i for i in range(3) if i != d]
     fwd = (perp[0] + 1, perp[1] + 1, d + 1, 0)
     rc = r.permute(fwd)  # (na, nb, n, 3)
     na, nb, n = rc.shape[:3]
-    z = torch.matmul(line_inv, rc.reshape(na, nb, n * 3, 1)).reshape(na, nb, n, 3)
+    z = torch.matmul(line_inv, rc.reshape(na, nb, n * 3, 1)).reshape(na, nb, b, 3)
     return z.permute(tuple(int(i) for i in np.argsort(fwd))).contiguous()
 
 
@@ -294,13 +332,6 @@ def line_dim_for(fine_shape, min_extent: int = 3) -> int:
     cubes (-1) keep the point smoother."""
     thin = [d for d in range(3) if fine_shape[d] <= 2 * min_extent + 1]
     return thin[0] if len(thin) == 1 else -1
-
-
-def line_split_message(line_dim: int, procs: int) -> str:
-    """Why a rank grid that splits the line dim cannot run MG."""
-    flag = f"-da_processors_{'xyz'[line_dim]}"
-    return (f"{flag} {procs} splits the line dimension of the semicoarsened MG "
-            f"hierarchy, whose line solves need it whole on every rank; set {flag} 1")
 
 
 def build_hierarchy(
@@ -328,10 +359,11 @@ def build_hierarchy(
     hierarchy is the one-process hierarchy of the padded node box, as the
     JAX package's N-device run builds it: level 0 is the rank's block
     (``A0_soa`` its rows, required; ``ctan`` its node-shaped tangent block;
-    its line_inv from its own rows, exact because the line dim is never
-    split), and every coarser level is whole and replicated on every rank,
-    from the level-1 tangents of ``coarsen_ctan_ranks`` (one all-reduce)
-    and ``bc_mask_soa``, the global padded mask."""
+    its line_inv from its own rows where the line dim is whole, else its
+    rows of the inverse of the gathered line, ``_build_line_inv_ranks``),
+    and every coarser level is whole and replicated on every rank, from
+    the level-1 tangents of ``coarsen_ctan_ranks`` (one all-reduce) and
+    ``bc_mask_soa``, the global padded mask."""
     if assemble_fn is None:
         assemble_fn = assemble_stencil_slab
     levels: List[MGLevel] = []
@@ -347,8 +379,6 @@ def build_hierarchy(
         if A0_soa is None:
             raise ValueError("a rank's hierarchy needs its level-0 rows A0_soa")
     line_dim = line_dim_for(fine_shape, min_extent)
-    if mesh is not None and line_dim >= 0 and mesh.split[line_dim]:
-        raise ValueError(line_split_message(line_dim, mesh.grid.procs[line_dim]))
     lev = 0
     while True:
         shape = fine_shape if lev == 0 else tuple(n + 1 for n in cur_ctan.shape[:3])
@@ -366,12 +396,17 @@ def build_hierarchy(
                 ),
             )
         rank_rows = mesh is not None and lev == 0
+        line_inv = None
+        if line_dim >= 0:
+            line_inv = (_build_line_inv_ranks(A_soa, line_dim, mesh)
+                        if rank_rows and mesh.split[line_dim]
+                        else _build_line_inv(A_soa, line_dim))
         levels.append(
             MGLevel(
                 A_soa=A_soa,
                 inv_diag=_inv3x3_soa(A_soa[DIAG_OFFSET]),
                 bc_mask=cur_mask[(slice(None),) + mesh.slices()] if rank_rows else cur_mask,
-                line_inv=_build_line_inv(A_soa, line_dim) if line_dim >= 0 else None,
+                line_inv=line_inv,
                 line_dim=line_dim,
             )
         )
@@ -405,18 +440,19 @@ def _rb_mask(level: MGLevel, color: int, origin=(0, 0, 0)) -> torch.Tensor:
 
 
 def _smooth(level: MGLevel, x: torch.Tensor, b: torch.Tensor, nu: int,
-            omega: float, mv, reverse: bool = False, rb=None) -> torch.Tensor:
+            omega: float, mv, reverse: bool = False, rb=None, gather=None) -> torch.Tensor:
     """nu smoothing sweeps: damped point block-Jacobi on cube levels;
     red-black line Gauss-Seidel on semicoarsened levels, with ``rb`` the
     level's two colour masks (omega unused; ``reverse`` flips the colour
     order so post-smoothing is the adjoint of pre-smoothing and the V-cycle
-    stays SPD)."""
+    stays SPD) and ``gather`` the line gather of a split line dim (one per
+    colour half-sweep)."""
     if level.line_dim >= 0:
         colors = (1, 0) if reverse else (0, 1)
         for _ in range(nu):
             for c in colors:
                 r = b - mv(level.A_soa, x)
-                dz = _line_apply(level.line_inv, level.line_dim, r)
+                dz = _line_apply(level.line_inv, level.line_dim, r, gather)
                 x = x + torch.where(rb[c], dz, 0.0)
         return x
     D = level.inv_diag
@@ -485,7 +521,10 @@ def make_mg_preconditioner(
     (halo exchange + K1) and coloured by global parity; the 0->1
     restriction applies the rank's rows of each 1-D P and sums the coarse
     vector over the ranks (one all-reduce per V-cycle), the prolongation
-    the same rows with no traffic; the coarse levels run whole on every
+    the same rows with no traffic; where the rank grid splits the line dim,
+    each colour half-sweep gathers the residual's line over the rank's line
+    group (``axis_gather``: 4 nu gathers per V-cycle) and applies the
+    rank's rows of the line inverse; the coarse levels run whole on every
     rank, so every rank posts the same collectives in the same order."""
     n_levels = len(levels)
     if dtype is None:
@@ -493,15 +532,19 @@ def make_mg_preconditioner(
     mvs = [stencil_matvec_soa if mv_for is None else mv_for(lv) for lv in levels]
     shapes = [tuple(lv.A_soa.shape[-3:]) for lv in levels]
     rb_origin = (0, 0, 0)
+    gather0 = None
     if mesh is not None:
         if n_levels < 2:
             raise ValueError("MG across ranks needs a coarse level; the padded node box "
                              f"{mesh.node_shape} does not coarsen")
-        from macroc_tpu_torch.parallel.halo import stencil_matvec_local
+        from macroc_tpu_torch.parallel.halo import axis_gather, stencil_matvec_local
 
         mvs[0] = partial(stencil_matvec_local, mesh=mesh)
         shapes[0] = tuple(mesh.node_shape)
         rb_origin = mesh.start
+        d = levels[0].line_dim
+        if d >= 0 and mesh.split[d]:
+            gather0 = partial(axis_gather, mesh=mesh, axis=d, dim=d + 1)
     coarse_inv = None
     if coarse_direct:
         Ac = levels[-1].A_soa
@@ -534,7 +577,8 @@ def make_mg_preconditioner(
                 return z.reshape(r.shape[1:] + (3,)).permute(3, 0, 1, 2).contiguous()
             return _smooth(level, torch.zeros_like(r), r, coarse_sweeps, omega,
                            mvs[l], rb=rbs[l])
-        x = _smooth(level, torch.zeros_like(r), r, nu, omega, mvs[l], rb=rbs[l])
+        gather = gather0 if l == 0 else None
+        x = _smooth(level, torch.zeros_like(r), r, nu, omega, mvs[l], rb=rbs[l], gather=gather)
         res = r - mvs[l](level.A_soa, x)
         rc = restrict0(res) if l == 0 else _restrict_with(res, mats[l])
         # coarse Dirichlet rows carry no error
@@ -542,6 +586,6 @@ def make_mg_preconditioner(
         ec = vcycle(l + 1, rc)
         corr = _prolong_with(ec, mats[l])
         x = x + corr.masked_fill(level.bc_mask, 0.0)
-        return _smooth(level, x, r, nu, omega, mvs[l], reverse=True, rb=rbs[l])
+        return _smooth(level, x, r, nu, omega, mvs[l], reverse=True, rb=rbs[l], gather=gather)
 
     return lambda r: vcycle(0, r)

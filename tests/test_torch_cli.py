@@ -2,7 +2,7 @@
 CPU (MACROC_PLATFORM=cpu) against ``python -m macroc_tpu`` at float64 on
 one CTest grid, with CG, GMRES and the matrix-free operator, and on the FE²
 golden's launch line (tests/test_cli.py is the model); the flags the port
-accepts, and the one rank grid it refuses under more than one rank."""
+accepts, on one process and under more than one rank."""
 
 import os
 import subprocess
@@ -122,27 +122,61 @@ def test_one_process_with_a_pinned_rank_grid_raises(monkeypatch):
     (["-vtu_freq", "1"], "-vtu_freq"),
     (["-checkpoint_freq", "2"], "-checkpoint_freq"),
     (["-resume"], "-resume"),
+    # 17x3x17 on ranks (1,2,1): MG splits the pancake's line dimension
+    (["-da_grid_x", "17", "-da_grid_z", "17", "-da_processors_x", "1", "-da_processors_y",
+      "2", "-da_processors_z", "1"], "-da_processors_y 2 (MG, split line)"),
 ])
 def test_unsupported_flags_named(flags, named):
     """MG, the matrix-free operator, micro-FE, VTU output, checkpoints and
-    resume, which the port once refused under more than one rank, each run
-    under 2 ranks as on one process (tests/test_torch_dist_*.py run them)."""
-    cfg = cli.parse_cli(["-da_grid_x", "5", "-da_grid_y", "3", "-da_grid_z", "3"] + flags)
-    assert cli.unsupported(cfg, world=2) == [], named
-    assert cli.unsupported(cfg) == []
-    assert cli.unsupported(cli.parse_cli(FLAGS[:-2]), world=2) == []
+    resume, and MG on a split line dimension, which the port once refused
+    under more than one rank: under 2 ranks both packages parse the same
+    config, decompose it alike and resolve the same solver plan on the
+    padded node box (tests/test_torch_dist_*.py run them)."""
+    from macroc_tpu import config as jconfig
+    from macroc_tpu.grid import make_grid as jmake_grid
+    from macroc_tpu.problem import resolve_solver_plan
+    from macroc_tpu_torch.grid import make_grid
+    from macroc_tpu_torch.parallel.mesh import padded_node_shape
+    from macroc_tpu_torch.problem import resolve_solver_plan_torch
+
+    argv = ["-da_grid_x", "5", "-da_grid_y", "3", "-da_grid_z", "3"] + flags
+    cfg, jcfg = cli.parse_cli(argv), jconfig.parse_cli(argv)
+    assert repr(cfg) == repr(jcfg), named
+    grid, jgrid = make_grid(cfg, 2), jmake_grid(jcfg, 2)
+    assert grid.procs == jgrid.procs and grid.procs[0] * grid.procs[1] * grid.procs[2] == 2
+    shape = padded_node_shape(grid)
+    plan = resolve_solver_plan_torch(cfg, shape, "cpu")
+    assert plan["pc_type"] == resolve_solver_plan(jcfg, shape, grid.procs, "cpu")["pc_type"]
 
 
-def test_unsupported_raises_before_the_run(monkeypatch):
-    """cli.run turns the list into NotImplementedError under a process
-    group, before anything runs: the one limit left, MG on a rank grid
-    that splits the line dimension of the pancake's hierarchy."""
-    monkeypatch.setattr(cli.distributed, "world", lambda: 2)
+def test_unsupported_raises_before_the_run(tmp_path, monkeypatch):
+    """The line the port once refused before the run, MG on 17x3x17 with
+    -da_processors_y 2 (the rank grid splits the pancake hierarchy's line
+    dimension), runs as 2 ranks of ``python -m macroc_tpu_torch``: every
+    step converges, rank 0 writes info.dat and the PVTU masters, and the
+    forces agree with one process within tests/test_dist.py's bounds for a
+    padded box (1e-4)."""
+    from test_torch_halo import launch_ranks
+
+    # tests/test_torch_dist_mg_pancake.py's 17x3x17 pancake (elastic)
+    flags = ["-da_grid_x", "17", "-da_grid_y", "3", "-da_grid_z", "17", "-lx", "10", "-ly", "1",
+             "-lz", "10", "-dt", "0.001", "-dtype", "float64", "-bc_type", "0", "-ts", "3",
+             "-vtu_freq", "2", "-pc_type", "mg"]
+    split = ["-da_processors_x", "1", "-da_processors_y", "2", "-da_processors_z", "1"]
+    code = ("import sys; from macroc_tpu_torch import cli; "
+            f"sys.exit(cli.main({flags + split + ['-output_dir', str(tmp_path / 'two')]!r}))")
+    outs = launch_ranks(2, code)
+    assert "NP_X : 1\tNP_Y : 2\tNP_Z : 1" in outs[0] and "Time Step = 2" in outs[0]
+    its = [int(l.split("Its = ")[1]) for l in outs[0].splitlines() if l.startswith("KSP :")]
+    assert len(its) == 2 and max(its) <= 25
     monkeypatch.setenv("MACROC_PLATFORM", "cpu")
-    with pytest.raises(NotImplementedError, match="-da_processors_y 2 splits the line dim"):
-        cli.run(FLAGS + ["-da_grid_x", "17", "-da_grid_z", "17", "-pc_type", "mg",
-                         "-da_processors_x", "1", "-da_processors_y", "2",
-                         "-da_processors_z", "1"])
+    one = cli.run(flags + ["-output_dir", str(tmp_path / "one")])
+    assert all(h["converged"] for h in one["history"])
+    rows = [np.loadtxt(tmp_path / d / "info.dat", ndmin=2) for d in ("two", "one")]
+    assert rows[0].shape == rows[1].shape == (3, 6)
+    np.testing.assert_allclose(rows[0][:, 3], rows[1][:, 3], rtol=1e-4)
+    assert sorted(f.name for f in (tmp_path / "two").glob("*.pvtu")) == [
+        "solution_0.pvtu", "solution_2.pvtu"]
 
 
 @pytest.mark.parametrize("flags", [
@@ -155,7 +189,6 @@ def test_flags_now_accepted(tmp_path, monkeypatch, flags):
     flags = [f.replace("{tmp}", str(tmp_path)) for f in flags]
     argv = FLAGS[:-2] + ["-output_dir", str(tmp_path / "out"),
                          "-checkpoint_dir", str(tmp_path / "ck")] + flags
-    assert cli.unsupported(cli.parse_cli(argv)) == []
     monkeypatch.setenv("MACROC_PLATFORM", "cpu")
     result = cli.run(argv)
     assert [h["ts"] for h in result["history"]] == [0, 1, 2]

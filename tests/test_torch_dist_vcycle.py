@@ -10,13 +10,18 @@ Cases, each on rank grids (1,1,2) and (2,1,2): the 17x3x17 pancake (line
 smoother; blocks that start at index 9) and a 9x9x9 cube (point smoother),
 with -mg_dtype float32 levels on the pancake as well.  The ranks also run a
 Newton step of the pancake with ``Comm.gather`` made to raise: no rank
-gathers u or the tangent field inside ``time_step``.  A rank grid that
-splits the line dimension raises ValueError naming the flag.
+gathers u or the tangent field inside ``time_step``.
+
+Rank grids that split the pancake's line dimension (y) run the pancake
+only: (1,2,1) pads y to 4, which coarsens once (to 3); (1,3,1) leaves
+every rank a block of one node along the line; (2,2,1) splits x as well.
+There every rank holds its rows of the line inverse and gathers each
+residual's line over its line group.  A line that fails to invert on one
+line group raises on every rank.
 """
 
 import json
 import os
-import types
 
 import numpy as np
 import pytest
@@ -31,6 +36,8 @@ CASES = {
     "cube": dict(nx=9, ny=9, nz=9, lx=4.0, ly=4.0, lz=4.0, bc_type=1, rad=1.0, dt=0.01),
 }
 RANK_GRIDS = [(1, 1, 2), (2, 1, 2)]
+# rank grids that split the pancake's line dimension
+LINE_SPLIT = [(1, 2, 1), (1, 3, 1), (2, 2, 1)]
 MG_DTYPES = {"pancake": [None, torch.float32], "cube": [None]}
 TOL = 1e-12
 
@@ -80,7 +87,10 @@ def _rank_main(procs, out_dir):
 
     assert distributed.maybe_initialize()
     out = {}
+    split = tuple(procs) in LINE_SPLIT
     for name, flags in CASES.items():
+        if split and name != "pancake":
+            continue
         cfg = MacroConfig(**flags, dtype="float64", procs_x=procs[0], procs_y=procs[1],
                           procs_z=procs[2])
         p = MacroProblem(cfg, "cpu")
@@ -107,8 +117,20 @@ def _rank_main(procs, out_dir):
                 r[(slice(None),) + m.slices()])))
             want = z[(slice(None),) + m.slices()]
             err = float((z_l - want).abs().max() / z.abs().max())
-            out[f"{name}_{mg_dtype}"] = dict(err=err, line_dim=mine[0].line_dim,
-                                             levels=len(mine), start=list(m.start))
+            out[f"{name}_{mg_dtype}"] = dict(
+                err=err, line_dim=mine[0].line_dim, levels=len(mine), start=list(m.start),
+                shapes=[list(lv.A_soa.shape[-3:]) for lv in mine],
+                shapes_one=[list(lv.A_soa.shape[-3:]) for lv in one],
+                line_inv=list(mine[0].line_inv.shape) if mine[0].line_inv is not None else None)
+        if split:
+            # one line group's level-0 rows singular: every rank must raise
+            bad = A_l * 0 if m.coords[0] == 0 else A_l
+            try:
+                build_hierarchy(ctan_l, p.mask_soa, p.grid.spacing, cfg.ref_b_quirk,
+                                A0_soa=bad, mesh=m)
+                out["singular"] = "built"
+            except ValueError as e:
+                out["singular"] = str(e)
     # a Newton step of the pancake with every gather refused
     cfg = MacroConfig(**CASES["pancake"], dtype="float64", procs_x=procs[0],
                       procs_y=procs[1], procs_z=procs[2])
@@ -129,7 +151,7 @@ def _rank_main(procs, out_dir):
 @pytest.fixture(scope="module")
 def results(tmp_path_factory):
     got = {}
-    for procs in RANK_GRIDS:
+    for procs in RANK_GRIDS + LINE_SPLIT:
         out = tmp_path_factory.mktemp("vcycle")
         n = int(np.prod(procs))
         launch_ranks(n, f"import test_torch_dist_vcycle as t; t._rank_main({procs!r}, "
@@ -148,29 +170,37 @@ def test_vcycle_ranks_match_the_padded_one_process_vcycle(results, procs, case):
     assert any(s % 2 for r in recs for s in r["start"])
 
 
-@pytest.mark.parametrize("procs", RANK_GRIDS)
+@pytest.mark.parametrize("procs", LINE_SPLIT, ids=str)
+@pytest.mark.parametrize("case", ["pancake_None", "pancake_torch.float32"])
+def test_vcycle_on_a_split_line_matches_the_padded_one_process_vcycle(results, procs, case):
+    recs = [r[case] for r in results[procs]]
+    assert max(r["err"] for r in recs) <= TOL, [r["err"] for r in recs]
+    assert all(r["line_dim"] == 1 for r in recs)
+
+
+@pytest.mark.parametrize("procs", RANK_GRIDS + LINE_SPLIT)
 def test_newton_step_gathers_nothing(results, procs):
     steps = [r["step"] for r in results[procs]]
     assert all(s == steps[0] for s in steps) and steps[0]["converged"]
     assert len(steps[0]["ksp_its"]) >= 1
 
 
-def test_split_line_dimension_raises():
-    """A pinned rank grid that splits the pancake's line dimension (y):
-    build_hierarchy raises before any traffic, naming the flag, and the
-    driver lists it among what it refuses."""
-    from macroc_tpu_torch import cli
-    from macroc_tpu_torch.solve.mg import build_hierarchy
-
-    mesh = types.SimpleNamespace(node_shape=(17, 4, 17), split=(False, True, False),
-                                 grid=types.SimpleNamespace(procs=(1, 2, 1)))
-    ctan = torch.zeros((17, 2, 17, 8, 6, 6), dtype=torch.float64)
-    with pytest.raises(ValueError, match="-da_processors_y 2 splits the line dimension"):
-        build_hierarchy(ctan, torch.zeros((3, 17, 4, 17), dtype=torch.bool), (1.0,) * 3,
-                        True, A0_soa=torch.zeros(1), mesh=mesh)
-    cfg = cli.parse_cli(["-da_grid_x", "17", "-da_grid_y", "3", "-da_grid_z", "17",
-                         "-da_processors_x", "1", "-da_processors_y", "2",
-                         "-da_processors_z", "1"])
-    missing = cli.unsupported(cfg, world=2)
-    assert len(missing) == 1 and "-da_processors_y 2" in missing[0]
-    assert cli.unsupported(cfg) == []
+def test_split_line_dimension_raises(results):
+    """A pinned rank grid that splits the pancake's line dimension (y) once
+    raised; now every rank builds the padded box's line-smoothed hierarchy
+    (line_dim 1, the one-process level shapes), holds its rows (na, nb,
+    3 b, 3 n) of the level-0 line inverse, and a line that fails to invert
+    on one line group raises on every rank (x = 0's rows zeroed)."""
+    want_shapes = {(1, 2, 1): [[17, 4, 17], [9, 3, 9], [5, 3, 5], [3, 3, 3]],
+                   (1, 3, 1): [[17, 3, 17], [9, 3, 9], [5, 3, 5], [3, 3, 3]],
+                   (2, 2, 1): [[18, 4, 17], [10, 3, 9], [6, 3, 5], [4, 3, 3], [3, 3, 3]]}
+    for procs in LINE_SPLIT:
+        for r in results[procs]:
+            rec = r["pancake_None"]
+            n = rec["shapes_one"][0][1]
+            b = n // procs[1]
+            assert rec["line_dim"] == 1 and rec["shapes_one"] == want_shapes[procs]
+            assert rec["shapes"] == [[n // p for n, p in zip(want_shapes[procs][0], procs)]] \
+                + want_shapes[procs][1:]
+            assert rec["line_inv"] == [rec["shapes"][0][0], rec["shapes"][0][2], 3 * b, 3 * n]
+            assert "MG line operator along y is singular on" in r["singular"], r["singular"]

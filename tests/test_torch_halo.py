@@ -15,7 +15,10 @@ layout and compares:
     stencil_matvec_local against shmap_stencil_matvec: 1e-12 relative
     (test_halo.py's bound: the per-rank assemblers and products sum in
     another order than the JAX ones);
-  - the width > extent ValueError, and RankMesh.gather, bitwise.
+  - the width > extent ValueError, and RankMesh.gather, bitwise;
+  - axis_gather along each axis on rank grids (1,2,1), (1,3,1) and (2,2,1)
+    (one launch each): bitwise the global field's line of blocks, and the
+    identity on one process and along an unsplit axis.
 
 The ranks import no jax: this module imports it inside the tests only.
 """
@@ -295,3 +298,69 @@ def test_width_beyond_the_block_raises_and_gather_is_exact(runs, procs):
     assert all(bool(r["width_raises"]) for r in out)
     for r in out:
         np.testing.assert_array_equal(r["gather"], _inputs(procs)["u"])
+
+
+GATHER_MESHES = [(1, 2, 1), (1, 3, 1), (2, 2, 1)]
+
+
+def _gather_main(procs, out_dir):
+    """One rank: axis_gather of its block of a seeded global field along
+    each axis (tensor dims 1-3 of a (3, nx, ny, nz) field)."""
+    torch.set_num_threads(1)
+    from macroc_tpu_torch.grid import StructuredGrid3D
+    from macroc_tpu_torch.parallel import distributed
+    from macroc_tpu_torch.parallel.halo import axis_gather
+    from macroc_tpu_torch.parallel.mesh import RankMesh
+
+    assert distributed.maybe_initialize()
+    mesh = RankMesh(StructuredGrid3D(*SHAPE, 1.0, 1.0, 1.0, procs=tuple(procs)),
+                    distributed.Comm("cpu"))
+    x = torch.as_tensor(np.ascontiguousarray(_inputs(procs)["x"][(slice(None),) + mesh.slices()]))
+    out = {f"axis{a}": axis_gather(x, mesh, a, a + 1).numpy() for a in range(3)}
+    out["coords"] = np.array(mesh.coords)
+    out["unsplit_is_x"] = np.array([axis_gather(x, mesh, a, a + 1) is x
+                                    for a in range(3) if procs[a] == 1])
+    np.savez(os.path.join(out_dir, f"rank{mesh.comm.rank}.npz"), **out)
+    distributed.shutdown()
+
+
+@pytest.fixture(scope="module")
+def gathers(tmp_path_factory):
+    cache = {}
+
+    def get(procs):
+        if procs not in cache:
+            out_dir = tmp_path_factory.mktemp("gather")
+            n = int(np.prod(procs))
+            launch_ranks(n, "import test_torch_halo as t; "
+                            f"t._gather_main({json.dumps(list(procs))}, {str(out_dir)!r})")
+            cache[procs] = [dict(np.load(out_dir / f"rank{r}.npz")) for r in range(n)]
+        return cache[procs]
+
+    return get
+
+
+@pytest.mark.parametrize("procs", GATHER_MESHES, ids=str)
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_axis_gather_bitwise(gathers, procs, axis):
+    """Every rank holds its line group's whole line along ``axis``: the
+    global field at its own block along the two other axes, whole along
+    ``axis``."""
+    x = _inputs(procs)["x"]
+    block = tuple(n // p for n, p in zip(SHAPE, procs))
+    for r in gathers(procs):
+        sl = [slice(c * b, (c + 1) * b) for c, b in zip(r["coords"], block)]
+        sl[axis] = slice(None)
+        np.testing.assert_array_equal(r[f"axis{axis}"], x[(slice(None),) + tuple(sl)])
+        assert r["unsplit_is_x"].all()
+
+
+def test_axis_gather_is_the_identity_on_one_process():
+    from macroc_tpu_torch.grid import StructuredGrid3D
+    from macroc_tpu_torch.parallel.distributed import Comm
+    from macroc_tpu_torch.parallel.halo import axis_gather
+    from macroc_tpu_torch.parallel.mesh import RankMesh
+
+    mesh = RankMesh(StructuredGrid3D(*SHAPE, 1.0, 1.0, 1.0), Comm("cpu"))
+    x = torch.as_tensor(_inputs((1, 1, 1))["x"])
+    assert all(axis_gather(x, mesh, a, a + 1) is x for a in range(3))
