@@ -78,7 +78,10 @@ non-zero without the result line):
                and the f64 bending_plastic_5x3x3 golden line at 2 ranks
                (with -vtu_freq 1: PVTU pieces per rank) against 1 process
                within the golden roundoff bounds; where there are two
-               cards, the 100^3 line again with NCCL.
+               cards, the 100^3 line again with NCCL;
+ 13. bench   — ``bench_torch.main(quick=True)``: every bench function once
+               (one sample per timing, the micro-FE production rows at 2048
+               GPs), its gates, and K1, K1v1 and K2 launched.
 
 The second-to-last line is the per-kernel JSON record, the last line
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits 1
@@ -210,37 +213,11 @@ def bound(nbytes, flops):
     return (mem_ms, "bytes") if mem_ms >= op_ms else (op_ms, "operations")
 
 
-def csr_from_soa(A):
-    """The SoA stencil A (27,3,3,nx,ny,nz) as one CSR matrix over node-major
-    dofs (row p*3+d, column q*3+e), out-of-grid neighbours dropped, int32
-    indices: the input of the library SpMV that K1 is held against."""
-    from macroc_tpu_torch.fem.kernels import STENCIL_OFFSETS
-
-    nx, ny, nz = A.shape[-3:]
-    n, dev = nx * ny * nz, A.device
-    offs = torch.as_tensor(STENCIL_OFFSETS, device=dev)
-    idx = [torch.arange(m, device=dev) for m in (nx, ny, nz)]
-    valid = torch.ones((nx, ny, nz, 27), dtype=torch.bool, device=dev)
-    for ax in range(3):
-        shift = idx[ax].view([-1 if i == ax else 1 for i in range(3)] + [1]) + offs[:, ax]
-        valid &= (shift >= 0) & (shift < (nx, ny, nz)[ax])
-    # row (p, d) holds (o, e) in column order: o runs x slowest like q
-    keep = valid[:, :, :, None, :, None].expand(nx, ny, nz, 3, 27, 3).reshape(-1)
-    values = A.permute(3, 4, 5, 1, 0, 2).reshape(-1)[keep]
-    lin = (offs[:, 0] * ny * nz + offs[:, 1] * nz + offs[:, 2]).to(torch.int32)
-    q = torch.arange(n, device=dev, dtype=torch.int32).view(n, 1, 1, 1) + lin.view(1, 1, 27, 1)
-    cols = (q * 3 + torch.arange(3, device=dev, dtype=torch.int32).view(1, 1, 1, 3))
-    cols = cols.expand(n, 3, 27, 3).reshape(-1)[keep]
-    counts = (valid.reshape(n, 27).sum(1, dtype=torch.int32) * 3).repeat_interleave(3)
-    crow = torch.zeros(3 * n + 1, dtype=torch.int32, device=dev)
-    crow[1:] = torch.cumsum(counts, 0, dtype=torch.int32)
-    return torch.sparse_csr_tensor(crow, cols, values, size=(3 * n, 3 * n),
-                                   check_invariants=False)
-
-
 def library_spmv(tag, A, x, y_kernel):
     """Time one cuSPARSE CSR SpMV (``torch.mv(A_csr, x)``) on the same operator and
     vector as K1, held against the kernel's y; returns ms."""
+    from bench_torch import csr_from_soa
+
     A_csr = csr_from_soa(A)
     xv = x.permute(1, 2, 3, 0).reshape(-1)
     y = torch.mv(A_csr, xv).view(*x.shape[1:], 3).permute(3, 0, 1, 2)
@@ -1315,8 +1292,32 @@ def roundoff_failures(got, want):
     return bad
 
 
+def phase_bench(dev):
+    """bench_torch.main(quick=True): every bench function once on the card
+    at the full bench's shapes, one sample per timing, the micro-FE
+    production rows at 2048 GPs; the bench raises on an unconverged step or
+    a hand SpMV variant off its plain version.  K1, K1v1 and K2 must each
+    have launched.  Returns the launches per bench function."""
+    import bench_torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        result = bench_torch.main(["--out", os.path.join(tmp, "bench.json")], quick=True)
+    e = result["extras"]
+    totals = {k: sum(c[k] for c in e["launches"].values()) for k in ("K1", "K1v1", "K2")}
+    log(f"[bench] quick: SpMV {e['variant']} {e['spmv_ms']:.4f} ms (all {e['all_variants_ms']}, "
+        f"halo ratio {e['spmv_halo_ratio']:.3f}); newton MG {e['newton_ksp_its']} / Jacobi "
+        f"{e['newton_jacobi_ksp_its']} KSP its; fe2 {e['fe2_fastpath_ksp_its']} / "
+        f"{e['fe2_full_ksp_its']} KSP its; microfe partial n_active "
+        f"{e['microfe_partial_n_active']}; launches {totals}; peak GiB "
+        + json.dumps({k: round(v, 2) for k, v in e["peak_gib"].items()}))
+    check(all(v > 0 for v in totals.values()), f"bench: a kernel never launched: {totals}")
+    check(e["microfe_partial_n_active"] == len(range(0, e["microfe_partial_n_gps"], 10)),
+          "bench: microfe partial flags other GPs than the driven ones")
+    return e["launches"]
+
+
 PHASES = ("k1", "k1v1", "k2", "goldens", "main", "solvers", "checkpoint", "profile",
-          "microfe", "fe2", "dist")
+          "microfe", "fe2", "dist", "bench")
 
 
 def main():
@@ -1329,11 +1330,10 @@ def main():
     from macroc_tpu_torch.utils.runtime import setup_runtime
 
     setup_runtime()
+    from bench_torch import device_description
+
     dev = torch.device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = device_description(dev)
     log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     phase_build()
@@ -1376,7 +1376,10 @@ def main():
         dict(name="stencil_spmv_v1 (K1v1)", route="cuda",
              source="macroc_tpu_torch/csrc/stencil_spmv_v1.cu",
              replaces="macroc_tpu/ops/stencil_pallas.py:79",
-             launches=v1_launches, bound_ms=k1["bound_ms"], bound_by=k1["bound_by"],
+             launches=v1_launches,
+             launches_by_path={"spmv_sweep": v1_launches,
+                               "bench_spmv": got["bench"]["spmv"]["K1v1"]},
+             bound_ms=k1["bound_ms"], bound_by=k1["bound_by"],
              library_ms=k1["library_ms"], **k1v1),
         # K1's bf16-operator entry (the TPU kernel's narrow-A use,
         # stencil_pallas.py:257-265); launches: the 128^3 bf16 MG run's

@@ -1,6 +1,7 @@
 """Named wall-clock phases with device synchronisation and a profiler
 trace (the torch forms of ``macroc_tpu.utils.profiling.PhaseTimer`` and
-``trace``).
+``trace``), and the repeated timings of the bench entry points
+(``Timings``).
 
 CUDA work is asynchronous: a host clock around it measures the enqueue.
 Each phase therefore synchronises the device on entry and on exit, so the
@@ -13,9 +14,79 @@ import contextlib
 import os
 import time
 from collections import defaultdict
-from typing import Dict, Iterator, Optional
+from typing import Callable, Dict, Iterator, Optional
 
+import numpy as np
 import torch
+
+
+class Timings:
+    """Repeated timings of one device, each recorded under its label with
+    its median, relative spread and samples (``spreads``, the bench JSON's
+    ``timing_spreads``).  Every timing warms up first, then takes ``reps``
+    samples, in seconds per call.
+
+    ``loop``: the device time of a call that issues device work only — CUDA
+    events around ``calls`` back-to-back calls, divided by ``calls``.
+    ``dispatch``: the host clock around calls that end in
+    ``torch.cuda.synchronize()`` — for host-driven loops (a Newton step, a
+    Krylov solve, a micro-FE homogenize).  On a CPU device both read the
+    host clock; such times are never the card's."""
+
+    def __init__(self, device, reps: int = 3):
+        self.device = torch.device(device)
+        self.reps = reps
+        self.spreads: Dict[str, dict] = {}
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def med(self, label: Optional[str], samples) -> float:
+        """The median of ``samples``, recorded under ``label`` with the
+        spread (max - min) / median."""
+        med = float(np.median(samples))
+        if label:
+            self.spreads[label] = dict(
+                median=med, spread_frac=(max(samples) - min(samples)) / med if med else 0.0,
+                samples=[float(s) for s in samples])
+        return med
+
+    def loop(self, fn: Callable, calls: int, label: Optional[str] = None) -> float:
+        fn()
+        samples = []
+        for _ in range(self.reps):
+            if self.device.type == "cuda":
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                self._sync()
+                start.record()
+                for _ in range(calls):
+                    fn()
+                end.record()
+                end.synchronize()
+                samples.append(start.elapsed_time(end) / 1e3 / calls)
+            else:
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    fn()
+                samples.append((time.perf_counter() - t0) / calls)
+        return self.med(label, samples)
+
+    def dispatch(self, fn: Callable, label: Optional[str] = None, calls: int = 1,
+                 warm: Optional[Callable] = None) -> float:
+        """``warm`` (default ``fn``) once, then ``reps`` samples of
+        ``calls`` calls of ``fn`` each."""
+        (warm or fn)()
+        samples = []
+        for _ in range(self.reps):
+            self._sync()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            self._sync()
+            samples.append((time.perf_counter() - t0) / calls)
+        return self.med(label, samples)
 
 
 class PhaseTimer:

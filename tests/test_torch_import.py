@@ -69,9 +69,22 @@ def test_import_leaves_the_jax_package_out():
     assert int(out.split()[-1]) >= 30
 
 
+def test_bench_entry_points_leave_jax_and_the_jax_package_out():
+    """bench_torch.py and scripts/profile_newton_torch.py imported as
+    modules: neither jax nor ``macroc_tpu`` is loaded."""
+    _run(
+        "import sys\n"
+        "import bench_torch\n"
+        "bench_torch.load_profile_newton()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'macroc_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+
+
 def _sources():
     root = Path(REPO)
-    return sorted((root / "macroc_tpu_torch").rglob("*.py")) + [root / "chip_smoke.py"]
+    return sorted((root / "macroc_tpu_torch").rglob("*.py")) + [
+        root / "chip_smoke.py", root / "bench_torch.py", root / "scripts" / "profile_newton_torch.py"]
 
 
 def _jax_package_imports(path):
@@ -92,7 +105,8 @@ def _jax_package_imports(path):
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))
 def test_no_source_imports_the_jax_package(path):
     """No ``import macroc_tpu[...]`` or ``from macroc_tpu[.x] import`` in
-    the port's sources or chip_smoke.py, at any depth of the file."""
+    the port's sources, chip_smoke.py or its bench entry points, at any
+    depth of the file."""
     assert not _jax_package_imports(path)
 
 
