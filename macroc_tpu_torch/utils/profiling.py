@@ -26,7 +26,7 @@ class Timings:
     ``timing_spreads``).  Every timing warms up first, then takes ``reps``
     samples, in seconds per call.
 
-    ``loop``: the device time of a call that issues device work only — CUDA
+    ``loop``: the device time of a call that only queues device work — CUDA
     events around ``calls`` back-to-back calls, divided by ``calls``.
     ``dispatch``: the host clock around calls that end in
     ``torch.cuda.synchronize()`` — for host-driven loops (a Newton step, a
