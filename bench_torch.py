@@ -383,10 +383,10 @@ def measured(device, record, name, fn):
     return out
 
 
-def load_profile_newton():
-    """scripts/profile_newton_torch.py as a module."""
-    path = os.path.join(REPO, "scripts", "profile_newton_torch.py")
-    spec = importlib.util.spec_from_file_location("profile_newton_torch", path)
+def load_script(name):
+    """scripts/``name``.py (one of the port's scripts) as a module."""
+    path = os.path.join(REPO, "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -441,8 +441,8 @@ def main(argv=None, quick=False):
             raise AssertionError(f"{nm} CG did NOT converge")
     phases = None
     if args.phases:
-        phases = run("phases_128cubed",
-                     lambda: load_profile_newton().main(n=128, device=device, timings=t))
+        profile = load_script("profile_newton_torch")
+        phases = run("phases_128cubed", lambda: profile.main(n=128, device=device, timings=t))
 
     roofline = HBM_GB_S * 1e9 / F32_BYTES_PER_NODE * 243
     extras = {

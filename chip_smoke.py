@@ -25,9 +25,11 @@ non-zero without the result line):
   4. K2      — the fused assembly kernel vs its plain version and the
                slab form at (32,32,32) and (20,9,27) elements and at the
                element shapes of the same path levels, f32 and f64, two
-               launches bitwise equal; then timed at 127^3 elements beside
-               the earlier two-stage path (stage-1 matmul + combine
-               kernel), with each path's peak memory;
+               launches bitwise equal; then timed at 127^3 elements as the
+               Newton step calls it (B's shape derivatives passed once),
+               beside the same call reading B on every launch and the
+               earlier two-stage path (stage-1 matmul + combine kernel),
+               with each path's peak memory;
   5. goldens — the four J2 CG goldens, the GMRES golden and the FE² golden
                (tests/goldens/*.json) at f64 through the kernels;
   6. main    — ``macroc_tpu_torch.cli`` on the 128^3 J2 + MG bending case,
@@ -81,7 +83,13 @@ non-zero without the result line):
                cards, the 100^3 line again with NCCL;
  13. bench   — ``bench_torch.main(quick=True)``: every bench function once
                (one sample per timing, the micro-FE production rows at 2048
-               GPs), its gates, and K1, K1v1 and K2 launched.
+               GPs), its gates, and K1, K1v1 and K2 launched;
+ 14. scripts — the port's scripts through their functions: tune_microfe's
+               six configurations on 256 GPs (micro_n=10), the pancake MG
+               check at 33x3x33 f64 (counts within 1 of the CPU's),
+               bisect_newton's assembly forms at 127^3 and its 128^3 MG
+               step, the scaling sweep's 48^3 grid on 1 and 2 ranks; K1
+               and K2 launched in the pancake, bisect and scaling runs.
 
 The second-to-last line is the per-kernel JSON record, the last line
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits 1
@@ -94,7 +102,6 @@ import gc
 import json
 import math
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -423,8 +430,10 @@ def phase_k2(dev, path_shapes):
     """The fused K2 against its plain version (stage 1 + combine_plain) and
     the slab form at every element shape the driven paths give it, f32 and
     f64, with two launches bitwise equal; then, at the 128^3 main path's
-    127^3 elements in f32, timed beside the earlier two-stage path (stage-1
-    matmul + the combine kernel) and the plain version."""
+    127^3 elements in f32, timed with B's shape derivatives passed once (as
+    the Newton step calls it) and read from B per call, beside the earlier
+    two-stage path (stage-1 matmul + the combine kernel) and the plain
+    version."""
     from macroc_tpu_torch.fem.element import b_matrix
     from macroc_tpu_torch.fem.kernels import assemble_stencil_soa
     from macroc_tpu_torch.ops import assembly as asm
@@ -469,13 +478,19 @@ def phase_k2(dev, path_shapes):
     err_slab = rel_err(A, assemble_stencil_soa(ct, B, 0.1, shape).reshape(243, *shape))
     check(err_slab < TOLS[torch.float32], "K2 disagrees with the slab form at 127^3")
     del A, A_two
+    # B's shape derivatives taken once, as the Newton step does
+    # (MacroProblem.dsh); without dsh every call reads B to the host and
+    # checks its pattern: a device sync between launches
+    dsh = asm.b_dsh(B)
+    fused = lambda: asm.assemble_stencil_soa_kernel(ct, B, 0.1, shape, dsh=dsh)
     two_stage = lambda: asm.combine_cuda(asm.element_stiffness_cm(ct, B, 0.1), shape)
-    t = {"fused": time_ms(lambda: asm.assemble_stencil_soa_kernel(ct, B, 0.1, shape), 20),
+    t = {"fused": time_ms(fused, 20),
+         "fused, B read per call": time_ms(
+             lambda: asm.assemble_stencil_soa_kernel(ct, B, 0.1, shape), 20),
          "stage-1 matmul": time_ms(lambda: asm.element_stiffness_cm(ct, B, 0.1), 5),
          "stage 1 + combine kernel": time_ms(two_stage, 5),
          "plain": time_ms(lambda: asm.assemble_stencil_soa_plain(ct, B, 0.1, shape), 3)}
-    peak = {"fused": peak_gib(lambda: asm.assemble_stencil_soa_kernel(ct, B, 0.1, shape)),
-            "two-stage": peak_gib(two_stage)}
+    peak = {"fused": peak_gib(fused), "two-stage": peak_gib(two_stage)}
     nbytes = (288 * math.prod(ne) + 243 * math.prod(shape)) * 4
     flops = 2 * 17280 * math.prod(ne)
     bound_ms, bound_by = bound(nbytes, flops)
@@ -489,6 +504,7 @@ def phase_k2(dev, path_shapes):
     return dict(max_abs_err=abs_err, ms=t["fused"], plain_ms=t["plain"], bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None,
                 library_note="no single PyTorch call assembles a stencil from tangents",
+                fused_b_per_call_ms=t["fused, B read per call"],
                 stage1_ms=t["stage-1 matmul"], two_stage_ms=t["stage 1 + combine kernel"],
                 peak_gib=peak["fused"], two_stage_peak_gib=peak["two-stage"])
 
@@ -968,48 +984,13 @@ distributed.shutdown()
 """
 
 
-def spawn_ranks(tag, program, arg, n, timeout=600):
-    """``python -c program arg`` as n processes of one process group (the
-    MACROC_* environment, a free localhost port; none for n=1), each
-    reaching the card by the backend rule; returns the JSON of each rank's
-    last ``RANK`` line, in rank order.  A rank that fails or outlives
-    ``timeout`` fails the phase, and every process is stopped."""
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    procs = []
-    for rank in range(n):
-        env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
-        if n > 1:
-            env.update(MACROC_COORDINATOR=f"localhost:{port}", MACROC_NUM_PROCESSES=str(n),
-                       MACROC_PROCESS_ID=str(rank))
-        procs.append(subprocess.Popen([sys.executable, "-c", program, arg], cwd=REPO,
-                                      env=env, stdout=subprocess.PIPE,
-                                      stderr=subprocess.STDOUT, text=True))
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=timeout)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    records = []
-    for rank, (p, out) in enumerate(zip(procs, outs)):
-        lines = [l for l in out.splitlines() if l.startswith("RANK ")]
-        check(p.returncode == 0 and lines, f"{tag}: rank {rank} failed:\n{out[-3000:]}")
-        records.append(json.loads(lines[-1][5:]))
-    return records
-
-
 def launch_ranks(tag, flags, n, out_dir, ckpt_dir=None):
     """``RANK_PROGRAM`` (the CLI) on ``flags`` as n ranks; checks every
     step converged and every rank launched K1 and K2."""
+    from macroc_tpu_torch.parallel.launch import spawn_local
+
     argv = flags + ["-output_dir", out_dir] + (["-checkpoint_dir", ckpt_dir] if ckpt_dir else [])
-    records = spawn_ranks(tag, RANK_PROGRAM, json.dumps(argv), n)
+    records = spawn_local(RANK_PROGRAM, json.dumps(argv), n)
     for r in records:
         h = r["history"]
         log(f"[{tag}] rank {r['rank']} of {n} (backend {r['backend']}): step seconds "
@@ -1079,6 +1060,7 @@ def phase_dist(dev):
     from macroc_tpu_torch.fem.element import b_matrix
     from macroc_tpu_torch.ops import assembly as asm
     from macroc_tpu_torch.ops.stencil_spmv import stencil_matvec, stencil_matvec_soa
+    from macroc_tpu_torch.parallel.launch import spawn_local
 
     gen = torch.Generator(device=dev)
     for label, g, procs in dist_shapes():
@@ -1118,7 +1100,7 @@ def phase_dist(dev):
     del A, x
     log(f"[dist shapes] {label}: K1 halo form on the rank block {block} f32 {k1_ms:.4f} ms")
     grid_args = json.dumps(list(g) + [list(procs)])
-    for r in spawn_ranks("dist comm", COMM_PROGRAM, grid_args, 2):
+    for r in spawn_local(COMM_PROGRAM, grid_args, 2):
         log(f"[dist comm] rank {r['rank']} of 2 ({r['backend']}, sharing the card), host ms per "
             f"call: 2-element all-reduce {r['allreduce_ms']:.4f}, halo exchange of x "
             f"{r['halo_exchange_ms']:.4f}, K1 halo form {r['k1_halo_ms']:.4f}, exchange + K1 "
@@ -1128,7 +1110,7 @@ def phase_dist(dev):
             f"{r['restrict_allreduce_ms']:.4f}")
     # MG's line gather on the production grid split along y
     grid_args = json.dumps([50, 3, 50, list(LINESPLIT_GRIDS[0])])
-    for r in spawn_ranks("dist comm linesplit", COMM_PROGRAM, grid_args, 2):
+    for r in spawn_local(COMM_PROGRAM, grid_args, 2):
         log(f"[dist comm linesplit] rank {r['rank']} of 2 ranks {LINESPLIT_GRIDS[0]} "
             f"({r['backend']}, sharing the card), host ms per call: line gather of the residual "
             f"({r['line_gather_bytes']} B, 4 nu per V-cycle) {r['line_gather_ms']:.4f}, halo "
@@ -1316,8 +1298,102 @@ def phase_bench(dev):
     return e["launches"]
 
 
+# the scripts phase: tune_microfe at the production RVE, the pancake check
+# on one grid at three (nu, omega), bisect_newton at the 128^3 main path's
+# grid, and the scaling sweep's grid on 1 and 2 ranks sharing the card
+TUNE_GPS = 256
+PANCAKE_SHAPE = (33, 3, 33)
+PANCAKE_RUNS = [((1,), (0.6,)), ((2,), (0.6, 1.0))]
+# the card's PCG its against the CPU's, each within this many: K1 sums a
+# node's 27 block products in another order than the plain version, and
+# PCG to rtol 1e-5 on these systems turns that f64 roundoff into an
+# iteration either way (33x3x33 Jacobi: 285 on the card, 284 on the CPU)
+PANCAKE_ITS = 1
+BISECT_N = 128
+SCALING_GRID = 48
+
+
+def phase_scripts(dev):
+    """The port's scripts (scripts/*_torch.py) through the functions their
+    mains run, on the card: tune_microfe's six configurations (stresses
+    within its gate); the pancake check, whose f64 iteration counts must
+    be the CPU's within PANCAKE_ITS; bisect_newton's four assembly forms
+    at 127^3 (within TOLS of the plain form) and the 128^3 MG step (9 KSP
+    its); the scaling
+    sweep's grid on 1 and 2 ranks (KSP its within 2 or 2%).  K1 and K2 must
+    have launched in the pancake, bisect and scaling runs.  Returns the
+    launches per script run."""
+    from bench_torch import load_script
+    from macroc_tpu_torch.ops.assembly import assemble_stencil_soa_kernel as k2
+    from macroc_tpu_torch.ops.stencil_spmv import stencil_matvec as k1
+    from macroc_tpu_torch.utils.profiling import Timings
+
+    t = Timings(dev, reps=1)
+    launches = {}
+
+    def counted(name, fn):
+        k1.launches = k2.launches = 0
+        out = fn()
+        launches[name] = dict(K1=k1.launches, K2=k2.launches)
+        return out
+
+    tune = load_script("tune_microfe_torch")
+    t0 = time.perf_counter()
+    rows, failures = tune.sweep(tune.configurations(False), TUNE_GPS, 10, device=dev, timings=t)
+    log(f"[scripts tune_microfe] {TUNE_GPS} GPs, micro_n=10, f32, one sample each: " + "; ".join(
+        f"{k} {r['gp_per_s']:.1f} GP/s (capped {r['capped']}, stress dev {r['stress_rel_dev']:.2e})"
+        for k, r in rows.items()) + f"; {time.perf_counter() - t0:.1f} s")
+    check(not failures and len(rows) == 6, f"scripts tune_microfe: failed {failures}")
+
+    pancake = load_script("_pancake_mg_check_torch")
+    t0 = time.perf_counter()
+    runs = lambda device: [pancake.check(PANCAKE_SHAPE, nus=nus, omegas=om, device=device)
+                           for nus, om in PANCAKE_RUNS]
+    counts = lambda rs: [[r["jacobi"]["its"]] + [m["its"] for m in r["mg"]] for r in rs]
+    card = counted("scripts_pancake", lambda: runs(dev))
+    cpu = runs("cpu")
+    log(f"[scripts pancake] {PANCAKE_SHAPE} f64, levels {card[0]['levels']}: [Jacobi, MG its] "
+        f"per (nu, omegas) {PANCAKE_RUNS}: card {counts(card)}, CPU {counts(cpu)} (bound "
+        f"{PANCAKE_ITS} apart); MG rel-diff "
+        f"{[m['rel_diff'] for r in card for m in r['mg']]}; launches "
+        f"{launches['scripts_pancake']}; {time.perf_counter() - t0:.1f} s")
+    check(all(abs(a - b) <= PANCAKE_ITS for r, q in zip(counts(card), counts(cpu))
+              for a, b in zip(r, q)) and len(sum(counts(card), [])) == len(sum(counts(cpu), [])),
+          f"scripts pancake: the card's counts differ from the CPU's by more than {PANCAKE_ITS}")
+
+    bisect = load_script("bisect_newton_torch")
+    t0 = time.perf_counter()
+    forms, step = counted("scripts_bisect", lambda: (
+        bisect.standalone_assembly(BISECT_N, device=dev, timings=t),
+        bisect.fused_step(True, BISECT_N, device=dev, timings=t)))
+    log(f"[scripts bisect] {BISECT_N - 1}^3 elements f32, ms per call (one sample): "
+        f"{forms['ms']}; max rel dev from plain {forms['rel_dev']} (bound "
+        f"{TOLS[torch.float32]:g}); {BISECT_N}^3 MG step coarse_direct=True "
+        f"{step['step_s']:.4f} s, {step['ksp_its']} KSP its; launches "
+        f"{launches['scripts_bisect']}; {time.perf_counter() - t0:.1f} s")
+    check(all(v < TOLS[torch.float32] for v in forms["rel_dev"].values()),
+          "scripts bisect: an assembly form disagrees with the plain one")
+    check(step["ksp_its"] == 9, f"scripts bisect: {step['ksp_its']} KSP its, want 9")
+
+    sweep = load_script("scaling_sweep_torch")
+    t0 = time.perf_counter()
+    scaling = {n: sweep.run_one(n, SCALING_GRID, 1) for n in (1, 2)}
+    for n, r in scaling.items():
+        launches[f"scripts_scaling_{n}"] = r["launches"]
+    a, b = scaling[1]["ksp_its"], scaling[2]["ksp_its"]
+    log(f"[scripts scaling] {SCALING_GRID}^3, ranks sharing the card (not a scaling figure): "
+        + "; ".join(f"{n} ({r['backend']}, procs {r['procs']}): step {r['step_s'] * 1e3:.1f} ms, "
+                    f"{r['ksp_its']} KSP its, |u| {r['u_norm']:.6e}, launches {r['launches']}"
+                    for n, r in scaling.items()) + f"; {time.perf_counter() - t0:.1f} s")
+    check(abs(a - b) <= max(2, 0.02 * a), f"scripts scaling: KSP its {b} on 2 ranks vs {a}")
+    for name in ("scripts_pancake", "scripts_bisect", "scripts_scaling_1", "scripts_scaling_2"):
+        check(launches[name]["K1"] > 0 and launches[name]["K2"] > 0,
+              f"{name}: K1 or K2 never launched: {launches[name]}")
+    return launches
+
+
 PHASES = ("k1", "k1v1", "k2", "goldens", "main", "solvers", "checkpoint", "profile",
-          "microfe", "fe2", "dist", "bench")
+          "microfe", "fe2", "dist", "bench", "scripts")
 
 
 def main():
@@ -1356,9 +1432,10 @@ def main():
     dist_launches, dist_k1_ms = got["dist"]
     # ``launches`` is the 128^3 J2 main path's count, as since the first
     # slice; ``launches_by_path`` adds each FE² line's own count and each
-    # 2-rank line's (summed over its ranks)
+    # 2-rank line's (summed over its ranks) and each script run's
     by_path = lambda k: {"j2_128": got["main"][k], **{p: c[k] for p, c in fe2.items()},
-                         **{p: c[k] for p, c in dist_launches.items()}}
+                         **{p: c[k] for p, c in dist_launches.items()},
+                         **{p: c[k] for p, c in got["scripts"].items()}}
     kernels = [
         dict(name="stencil_spmv (K1)", route="cuda",
              source="macroc_tpu_torch/csrc/stencil_spmv.cu",

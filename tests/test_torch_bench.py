@@ -208,7 +208,7 @@ def test_microfe_rates(port):
 
 
 def test_profile_newton_returns_every_phase():
-    prof = bench_torch.load_profile_newton()
+    prof = bench_torch.load_script("profile_newton_torch")
     res = prof.main(n=9, device="cpu", timings=Timings("cpu", reps=1))
     assert set(res) == set(prof.PHASES) | {"sum(hom+linsolve)"}
     assert all(v > 0 for v in res.values())

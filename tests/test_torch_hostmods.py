@@ -125,3 +125,43 @@ def test_writers_write_identical_bytes(case, tmp_path):
     want = {"info.dat", "gauss_evolution.dat"} if case == "dat" else {
         "solution_2.pvtu", "solution_2-subdo-0.vtu", "solution_2-subdo-1.vtu"}
     assert set(files["port"]) == want
+
+
+def _script_lines(name):
+    """The lines of scripts/``name`` from ``set -euo pipefail`` on, comments
+    dropped."""
+    text = (REPO / "scripts" / name).read_text()
+    body = text[text.index("set -euo pipefail"):]
+    return [l.split("#")[0].rstrip() for l in body.splitlines()]
+
+
+@pytest.mark.parametrize("name", ["production_run", "pod_run"])
+def test_launch_scripts_have_the_jax_scripts_lines(name):
+    """scripts/<name>_torch.sh runs the port with the JAX script's flags and
+    MACROC_* handling: its lines are the JAX script's but for the module."""
+    port = _script_lines(f"{name}_torch.sh")
+    assert "exec python -m macroc_tpu_torch \\" in port
+    jax = _script_lines(f"{name}.sh")
+    assert [l.replace("macroc_tpu_torch", "macroc_tpu") for l in port] == jax
+
+
+@pytest.mark.parametrize("name,env,flags", [
+    ("production_run", {}, "-da_grid_x 5 -da_grid_z 5 -ts 2 -checkpoint_freq 1"),
+    ("pod_run", {"MACROC_GRID": "5", "MACROC_TS": "2"}, ""),
+])
+def test_launch_scripts_run_on_the_cpu(name, env, flags, tmp_path):
+    """Each launch script run as written on a small grid (later flags
+    override its own), MACROC_PLATFORM=cpu: the port's CLI writes info.dat
+    rows for every step (and the checkpoints production_run asks for)."""
+    import subprocess
+    import sys
+
+    argv = ["bash", str(REPO / "scripts" / f"{name}_torch.sh")] + flags.split() + [
+        "-output_dir", str(tmp_path), "-checkpoint_dir", str(tmp_path / "ck")]
+    e = dict(os.environ, MACROC_PLATFORM="cpu", OMP_NUM_THREADS="1", **env)
+    e["PATH"] = os.path.dirname(sys.executable) + os.pathsep + e.get("PATH", "")
+    r = subprocess.run(argv, env=e, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+    assert len((tmp_path / "info.dat").read_text().splitlines()) == 2
+    if name == "production_run":
+        assert sorted(os.listdir(tmp_path / "ck")) == ["step_1", "step_2"]

@@ -75,7 +75,31 @@ def test_bench_entry_points_leave_jax_and_the_jax_package_out():
     _run(
         "import sys\n"
         "import bench_torch\n"
-        "bench_torch.load_profile_newton()\n"
+        "bench_torch.load_script('profile_newton_torch')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'macroc_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+
+
+# the port's scripts, each the counterpart of the JAX script of its name
+# without ``_torch``
+SCRIPTS = ["profile_newton_torch.py", "tune_microfe_torch.py", "_pancake_mg_check_torch.py",
+           "bisect_newton_torch.py", "scaling_sweep_torch.py"]
+
+
+@pytest.mark.parametrize("script", SCRIPTS)
+def test_scripts_leave_jax_and_the_jax_package_out(script):
+    """Each of the port's scripts imported as a module, its functions'
+    imports included: neither jax nor ``macroc_tpu`` is loaded."""
+    _run(
+        "import importlib.util, sys\n"
+        f"path = {os.path.join(REPO, 'scripts', script)!r}\n"
+        "spec = importlib.util.spec_from_file_location('s', path)\n"
+        "mod = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(mod)\n"
+        "import bench_torch, macroc_tpu_torch.cli, macroc_tpu_torch.parallel.launch\n"
+        "import macroc_tpu_torch.problem, macroc_tpu_torch.solve.mg\n"
+        "assert callable(mod.main)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'macroc_tpu'))\n"
         "assert not bad, bad\n"
     )
@@ -84,7 +108,7 @@ def test_bench_entry_points_leave_jax_and_the_jax_package_out():
 def _sources():
     root = Path(REPO)
     return sorted((root / "macroc_tpu_torch").rglob("*.py")) + [
-        root / "chip_smoke.py", root / "bench_torch.py", root / "scripts" / "profile_newton_torch.py"]
+        root / "chip_smoke.py", root / "bench_torch.py"] + [root / "scripts" / s for s in SCRIPTS]
 
 
 def _jax_package_imports(path):
