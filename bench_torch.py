@@ -42,16 +42,13 @@ from __future__ import annotations
 
 import argparse
 import gc
-import importlib.util
 import json
 import os
-import subprocess
-import sys
 from functools import partial
 
 import torch
 
-from macroc_tpu_torch.utils.profiling import Timings
+from macroc_tpu_torch.utils.profiling import Timings, device_description, load_script
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_GB_S = 3350.0  # the H100 SXM's published device-memory rate
@@ -351,17 +348,6 @@ def bench_fe2_step(nx=50, ny=3, nz=50, micro_n=10, dtype="float32", fastpath=Tru
                 micro_n=micro_n, fastpath=fastpath)
 
 
-def device_description(device):
-    """The card's name and power limit as nvidia-smi gives them (the CPU's
-    name is just "cpu")."""
-    if device.type != "cuda":
-        return "cpu"
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[device.index or 0]
-
-
 def measured(device, record, name, fn):
     """``fn()`` with the K1, K1v1 and K2 launch counters set to 0 before it
     and the peak device memory reset; both are read after it into
@@ -381,15 +367,6 @@ def measured(device, record, name, fn):
     record["launches"][name] = dict(K1=k1.launches, K1v1=k1v1.launches, K2=k2.launches)
     print(f"[bench] {name}: {json.dumps(out)}", flush=True)
     return out
-
-
-def load_script(name):
-    """scripts/``name``.py (one of the port's scripts) as a module."""
-    path = os.path.join(REPO, "scripts", f"{name}.py")
-    spec = importlib.util.spec_from_file_location(name, path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def main(argv=None, quick=False):

@@ -10,7 +10,8 @@ non-zero without the result line):
                random A and x, f32 and f64, with and without the halo
                form, at (64,64,64), (33,17,45) and every node shape at
                which the driven paths launch it (each MG level of the
-               128^3 and 50x3x50 grids, the 10x3x10 grid), and its narrow
+               128^3, 50x3x50, 100^3, 33x3x33 and 48^3 grids, the
+               10x3x10 grid), and its narrow
                operator forms (bf16 and f16 A with f32 and f64 x, f32 A
                with f64 x) at the same shapes; then f32, the bf16-operator
                form and the plain version timed at the 128^3 fine-level
@@ -60,8 +61,9 @@ non-zero without the result line):
  12. dist    — the domain-decomposed run: K2 on each rank's local box plus
                one node plane per split axis (a slice of a node-shaped
                tangent field) and K1's halo form on the exchanged x, at the
-               rank blocks of this phase's lines and of 128^3 over 2, 4 and
-               8 ranks, f32 and f64, against their plain versions; the
+               rank blocks of this phase's lines and of 128^3 and 48^3
+               over 2, 4 and 8 ranks, f32 and f64, against their plain
+               versions; the
                host cost of one all-reduce, halo exchange and K1 halo call,
                and of MG's level-1 tangent and coarse-vector all-reduces,
                and of MG's line gather on the production grid split along
@@ -86,7 +88,8 @@ non-zero without the result line):
                GPs), its gates, and K1, K1v1 and K2 launched;
  14. scripts — the port's scripts through their functions: tune_microfe's
                six configurations on 256 GPs (micro_n=10), the pancake MG
-               check at 33x3x33 f64 (counts within 1 of the CPU's),
+               check at 33x3x33 f64 (counts within 1 of the CPU's, each
+               solution within 3 rtol of the CPU's),
                bisect_newton's assembly forms at 127^3 and its 128^3 MG
                step, the scaling sweep's 48^3 grid on 1 and 2 ranks; K1
                and K2 launched in the pancake, bisect and scaling runs.
@@ -151,8 +154,9 @@ MICROFE_TOL = dict(stress=1e-5, ctan=1e-5)
 
 # fine node grids of the driven paths: with an MG hierarchy (128^3 J2,
 # 50x3x50 FE², the 100^3 pod_run.sh line, whose coarse levels every rank
-# runs whole), and with Jacobi PCG on one level (10x3x10 FE²)
-MG_GRIDS = [(128, 128, 128), (50, 3, 50), (100, 100, 100)]
+# runs whole, the scripts phase's 33x3x33 pancake check, f64, and 48^3
+# scaling sweep), and with Jacobi PCG on one level (10x3x10 FE²)
+MG_GRIDS = [(128, 128, 128), (50, 3, 50), (100, 100, 100), (33, 3, 33), (48, 48, 48)]
 JACOBI_GRID = (10, 3, 10)
 
 MAIN_FLAGS = [
@@ -251,9 +255,9 @@ def phase_build():
 
 def path_node_shapes(dev):
     """Node shapes at which the driven paths launch K1 and K2: every level
-    of the MG hierarchy that ``build_hierarchy`` builds on the 128^3 grid
-    (J2 main path) and on the 50x3x50 grid (FE² lines), and the 10x3x10
-    grid (FE² full-solve line, Jacobi PCG on one level)."""
+    of the MG hierarchy that ``build_hierarchy`` builds on each grid of
+    MG_GRIDS (its level shapes depend on the node grid alone), and the
+    10x3x10 grid (FE² full-solve line, Jacobi PCG on one level)."""
     from macroc_tpu_torch import MaterialParams
     from macroc_tpu_torch.constitutive.elastic import elastic_matrix
     from macroc_tpu_torch.ops.assembly import assemble_stencil_soa_kernel
@@ -1037,7 +1041,8 @@ def info_table(out_dir):
 
 def dist_shapes():
     """(label, node grid, rank grid) of the decompositions the dist phase
-    runs and of 128^3 over 2, 4 and 8 ranks, by decide_processor_grid."""
+    runs, of 128^3 over 2, 4 and 8 ranks and of the scaling sweep's 48^3
+    over 2, 4 and 8, by decide_processor_grid."""
     from macroc_tpu_torch.grid import decide_processor_grid
 
     grids = [("pod_run 100^3", (100,) * 3, 2, (2, None, None)),
@@ -1046,6 +1051,8 @@ def dist_shapes():
              ("fe2 full 10x3x10", (10, 3, 10), 2, (None,) * 3)]
     grids += [("linesplit 50x3x50", (50, 3, 50), int(np.prod(p)), p) for p in LINESPLIT_GRIDS]
     grids += [("128^3", (128,) * 3, n, (None,) * 3) for n in (2, 4, 8)]
+    # scripts/scaling_sweep_torch.py's grid at its rank counts
+    grids += [("scaling 48^3", (48,) * 3, n, (None,) * 3) for n in (2, 4, 8)]
     return [(f"{label} over {n}", g, decide_processor_grid(n, *g, fixed=fixed))
             for label, g, n, fixed in grids]
 
@@ -1309,6 +1316,12 @@ PANCAKE_RUNS = [((1,), (0.6,)), ((2,), (0.6, 1.0))]
 # PCG to rtol 1e-5 on these systems turns that f64 roundoff into an
 # iteration either way (33x3x33 Jacobi: 285 on the card, 284 on the CPU)
 PANCAKE_ITS = 1
+# each card solution (Jacobi and each MG run) against the CPU's at the same
+# (nu, omega), in the 2-norm relative to the CPU's: a few times the solves'
+# rtol, so one iteration more or less passes and a wrong fine operator or
+# matvec does not (the coarse levels' kernels are held to their plain
+# versions at these shapes in the k1 and k2 phases)
+PANCAKE_XTOL = 3.0
 BISECT_N = 128
 SCALING_GRID = 48
 
@@ -1317,13 +1330,13 @@ def phase_scripts(dev):
     """The port's scripts (scripts/*_torch.py) through the functions their
     mains run, on the card: tune_microfe's six configurations (stresses
     within its gate); the pancake check, whose f64 iteration counts must
-    be the CPU's within PANCAKE_ITS; bisect_newton's four assembly forms
-    at 127^3 (within TOLS of the plain form) and the 128^3 MG step (9 KSP
-    its); the scaling
-    sweep's grid on 1 and 2 ranks (KSP its within 2 or 2%).  K1 and K2 must
-    have launched in the pancake, bisect and scaling runs.  Returns the
-    launches per script run."""
-    from bench_torch import load_script
+    be the CPU's within PANCAKE_ITS and each solution the CPU's within
+    PANCAKE_XTOL rtol; bisect_newton's four assembly forms at 127^3
+    (within TOLS of the plain form) and the 128^3 MG step (9 KSP its); the
+    scaling sweep's grid on 1 and 2 ranks (KSP its within 2 or 2%).  K1
+    and K2 must have launched in the pancake, bisect and scaling runs.
+    Returns the launches per script run."""
+    from macroc_tpu_torch.utils.profiling import load_script
     from macroc_tpu_torch.ops.assembly import assemble_stencil_soa_kernel as k2
     from macroc_tpu_torch.ops.stencil_spmv import stencil_matvec as k1
     from macroc_tpu_torch.utils.profiling import Timings
@@ -1352,14 +1365,21 @@ def phase_scripts(dev):
     counts = lambda rs: [[r["jacobi"]["its"]] + [m["its"] for m in r["mg"]] for r in rs]
     card = counted("scripts_pancake", lambda: runs(dev))
     cpu = runs("cpu")
+    solves = lambda rs: [[r["jacobi"]] + r["mg"] for r in rs]
+    x_dev = [[float(np.linalg.norm(a["x"] - b["x"]) / np.linalg.norm(b["x"])) for a, b in zip(r, q)]
+             for r, q in zip(solves(card), solves(cpu))]
+    x_tol = PANCAKE_XTOL * pancake.RTOL
     log(f"[scripts pancake] {PANCAKE_SHAPE} f64, levels {card[0]['levels']}: [Jacobi, MG its] "
         f"per (nu, omegas) {PANCAKE_RUNS}: card {counts(card)}, CPU {counts(cpu)} (bound "
-        f"{PANCAKE_ITS} apart); MG rel-diff "
+        f"{PANCAKE_ITS} apart); card solutions from the CPU's, rel 2-norm {x_dev} (bound "
+        f"{x_tol:g}); MG rel-diff from Jacobi on the card "
         f"{[m['rel_diff'] for r in card for m in r['mg']]}; launches "
         f"{launches['scripts_pancake']}; {time.perf_counter() - t0:.1f} s")
     check(all(abs(a - b) <= PANCAKE_ITS for r, q in zip(counts(card), counts(cpu))
               for a, b in zip(r, q)) and len(sum(counts(card), [])) == len(sum(counts(cpu), [])),
           f"scripts pancake: the card's counts differ from the CPU's by more than {PANCAKE_ITS}")
+    check(all(d <= x_tol for r in x_dev for d in r),
+          f"scripts pancake: a card solution is {x_dev} from the CPU's (bound {x_tol:g})")
 
     bisect = load_script("bisect_newton_torch")
     t0 = time.perf_counter()
@@ -1406,7 +1426,7 @@ def main():
     from macroc_tpu_torch.utils.runtime import setup_runtime
 
     setup_runtime()
-    from bench_torch import device_description
+    from macroc_tpu_torch.utils.profiling import device_description
 
     dev = torch.device("cuda")
     smi = device_description(dev)

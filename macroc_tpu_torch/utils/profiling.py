@@ -1,7 +1,9 @@
 """Named wall-clock phases with device synchronisation and a profiler
 trace (the torch forms of ``macroc_tpu.utils.profiling.PhaseTimer`` and
-``trace``), and the repeated timings of the bench entry points
-(``Timings``).
+``trace``), the repeated timings of the bench entry points (``Timings``),
+and what every measurement script shares: the card's description, a
+guarded configuration, the JSON record and headline (``finish``), and the
+repo's scripts loaded as modules (``load_script``).
 
 CUDA work is asynchronous: a host clock around it measures the enqueue.
 Each phase therefore synchronises the device on entry and on exit, so the
@@ -11,13 +13,70 @@ allowed (an outer phase includes its inner ones)."""
 from __future__ import annotations
 
 import contextlib
+import importlib.util
+import json
 import os
+import subprocess
 import time
+import traceback
 from collections import defaultdict
-from typing import Callable, Dict, Iterator, Optional
+from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def device_description(device) -> str:
+    """The card's name and power limit as nvidia-smi gives them (the CPU's
+    name is just "cpu")."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "cpu"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[device.index or 0]
+
+
+def guarded(name: str, fn: Callable, failures: List[str]):
+    """``fn()``; when it raises, its traceback and a ``FAILED`` line are
+    printed, ``name`` is added to ``failures`` and None is returned, so a
+    script goes on with its other configurations."""
+    try:
+        return fn()
+    except Exception as e:  # noqa: BLE001 - report it, go on with the next one
+        traceback.print_exc()
+        print(f"{name}: FAILED: {str(e)[-300:]}", flush=True)
+        failures.append(name)
+        return None
+
+
+def finish(out_path: str, record: dict, headline: dict, failures: list, device) -> int:
+    """A measurement script's end: ``record`` with the device's description,
+    the torch and CUDA versions and ``failures`` written as JSON to
+    ``out_path``; ``headline`` with the failures, the device and the path
+    printed as the last line; returns the exit code, 1 if anything
+    failed."""
+    dev = device_description(device)
+    record = dict(record, device=dev, torch=torch.__version__, cuda=torch.version.cuda,
+                  failures=failures)
+    out_path = os.path.abspath(out_path)
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
+    with open(out_path, "w") as f:
+        json.dump(record, f, indent=1)
+    print(json.dumps(dict(headline, failures=failures, device=dev, out=out_path)), flush=True)
+    return 1 if failures else 0
+
+
+def load_script(name: str):
+    """scripts/``name``.py (one of the port's scripts) as a module."""
+    path = os.path.join(REPO, "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 class Timings:

@@ -27,10 +27,8 @@ headline.
 from __future__ import annotations
 
 import argparse
-import json
 import os
 import sys
-import traceback
 from functools import partial
 
 import numpy as np
@@ -107,8 +105,8 @@ def without_x(result: dict) -> dict:
 
 
 def main(argv=None) -> int:
-    from bench_torch import device_description
     from macroc_tpu_torch.cli import device_from_env
+    from macroc_tpu_torch.utils.profiling import finish, guarded
     from macroc_tpu_torch.utils.runtime import setup_runtime
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -118,30 +116,19 @@ def main(argv=None) -> int:
     device = device_from_env()
     results, failures = [], []
     for shape in SHAPES:
-        name = "x".join(map(str, shape))
-        try:
-            r = without_x(check(shape, device=device))
-        except Exception as e:  # noqa: BLE001 - report it, go on with the next grid
-            traceback.print_exc()
-            print(f"{name}: FAILED: {str(e)[:200]}", flush=True)
-            failures.append(name)
+        r = guarded("x".join(map(str, shape)), lambda: without_x(check(shape, device=device)),
+                    failures)
+        if r is None:
             continue
         results.append(r)
-        print(f"{name}: jacobi {r['jacobi']['its']} its | levels "
+        print(f"{'x'.join(map(str, shape))}: jacobi {r['jacobi']['its']} its | levels "
               f"{[tuple(s) for s in r['levels']]}", flush=True)
         for m in r["mg"]:
             print(f"  nu={m['nu']} omega={m['omega']}: mg {m['its']} its "
                   f"(reason {m['reason']}) rel-diff {m['rel_diff']:.1e}", flush=True)
-    out = dict(device=device_description(device), torch=torch.__version__,
-               cuda=torch.version.cuda, rtol=RTOL, results=results, failures=failures)
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    with open(args.out, "w") as f:
-        json.dump(out, f, indent=1)
-    print(json.dumps(dict(
-        its={"x".join(map(str, r["shape"])): dict(
-            jacobi=r["jacobi"]["its"], mg=[m["its"] for m in r["mg"]]) for r in results},
-        failures=failures, device=out["device"], out=os.path.abspath(args.out))), flush=True)
-    return 1 if failures else 0
+    its = {"x".join(map(str, r["shape"])): dict(jacobi=r["jacobi"]["its"],
+                                                mg=[m["its"] for m in r["mg"]]) for r in results}
+    return finish(args.out, dict(rtol=RTOL, results=results), dict(its=its), failures, device)
 
 
 if __name__ == "__main__":

@@ -43,7 +43,6 @@ import argparse
 import json
 import os
 import sys
-import traceback
 
 import torch
 
@@ -135,7 +134,7 @@ def fused_step(coarse_direct, n=128, device=None, timings=None):
 
 
 def main(argv=None) -> int:
-    from bench_torch import device_description
+    from macroc_tpu_torch.utils.profiling import finish, guarded
     from macroc_tpu_torch.utils.runtime import setup_runtime
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -151,25 +150,16 @@ def main(argv=None) -> int:
                   for cd in (True, False)})
     results, failures = {}, []
     for key, fn in parts.items():
-        try:
-            results[key] = fn()
-        except Exception as e:  # noqa: BLE001 - report it, go on with the next part
-            traceback.print_exc()
-            print(f"{key}: FAILED: {str(e)[:300]}", flush=True)
-            failures.append(key)
-            continue
-        print(f"{key}: {json.dumps(results[key])}", flush=True)
-    out = dict(results, n=N, device=device_description(device), torch=torch.__version__,
-               cuda=torch.version.cuda, failures=failures, timing_spreads=t.spreads)
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    with open(args.out, "w") as f:
-        json.dump(out, f, indent=1)
-    print(json.dumps(dict(
-        assembly_ms=results.get("assembly", {}).get("ms"),
-        step_s={k: results[k]["step_s"] for k in results if k.startswith("step")},
-        ksp_its={k: results[k]["ksp_its"] for k in results if k.startswith("step")},
-        failures=failures, device=out["device"], out=os.path.abspath(args.out))), flush=True)
-    return 1 if failures else 0
+        r = guarded(key, fn, failures)
+        if r is not None:
+            results[key] = r
+            print(f"{key}: {json.dumps(r)}", flush=True)
+    steps = [k for k in results if k.startswith("step")]
+    headline = dict(assembly_ms=results.get("assembly", {}).get("ms"),
+                    step_s={k: results[k]["step_s"] for k in steps},
+                    ksp_its={k: results[k]["ksp_its"] for k in steps})
+    return finish(args.out, dict(results, n=N, timing_spreads=t.spreads), headline, failures,
+                  device)
 
 
 if __name__ == "__main__":

@@ -30,7 +30,6 @@ import argparse
 import json
 import os
 import sys
-import traceback
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -96,8 +95,8 @@ def run_one(n, grid, steps, dtype="float32", timeout=900):
 def main(argv=None) -> int:
     import torch
 
-    from bench_torch import device_description
     from macroc_tpu_torch.cli import device_from_env
+    from macroc_tpu_torch.utils.profiling import finish, guarded
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--grid", type=int, default=48)
@@ -106,15 +105,10 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=os.path.join(REPO, "build", "scaling_sweep_torch.json"))
     args = ap.parse_args(argv)
     device = device_from_env()
-    counts = [int(v) for v in args.devices.split(",")]
     results, failures = {}, []
-    for n in counts:
-        try:
-            r = run_one(n, args.grid, args.steps)
-        except Exception as e:  # noqa: BLE001 - report it, go on with the next count
-            traceback.print_exc()
-            print(f"devices={n}: FAILED: {str(e)[-300:]}", flush=True)
-            failures.append(n)
+    for n in [int(v) for v in args.devices.split(",")]:
+        r = guarded(f"devices={n}", lambda: run_one(n, args.grid, args.steps), failures)
+        if r is None:
             continue
         results[n] = r
         base_n = next(iter(results))
@@ -123,19 +117,13 @@ def main(argv=None) -> int:
         print(f"devices={n:<3d} step_time={r['step_s'] * 1e3:8.1f} ms  speedup={speedup:5.2f}  "
               f"efficiency={speedup / n * 100:5.1f} %  ksp_its={r['ksp_its']}  "
               f"backend={r['backend']}  |u|={r['u_norm']:.6e}", flush=True)
-    out = dict(grid=args.grid, steps=args.steps, device=device_description(device),
-               cards=torch.cuda.device_count() if device.type == "cuda" else 0,
-               torch=torch.__version__, cuda=torch.version.cuda,
-               results={str(k): v for k, v in results.items()}, failures=failures,
-               note="ranks beyond the card count share a card (gloo, host-staged "
-                    "collectives): time sharing, not scaling")
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    with open(args.out, "w") as f:
-        json.dump(out, f, indent=1)
-    print(json.dumps(dict(step_s={str(k): v["step_s"] for k, v in results.items()},
-                          failures=failures, device=out["device"], cards=out["cards"],
-                          out=os.path.abspath(args.out))), flush=True)
-    return 1 if failures else 0
+    cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    record = dict(grid=args.grid, steps=args.steps, cards=cards,
+                  results={str(k): v for k, v in results.items()},
+                  note="ranks beyond the card count share a card (gloo, host-staged "
+                       "collectives): time sharing, not scaling")
+    headline = dict(step_s={str(k): v["step_s"] for k, v in results.items()}, cards=cards)
+    return finish(args.out, record, headline, failures, device)
 
 
 if __name__ == "__main__":

@@ -3,7 +3,7 @@
 preconditioner and gp_chunk (the counterpart of the JAX package's
 scripts/tune_microfe.py):
 
-    python3 scripts/tune_microfe_torch.py [--fastpath] [--out FILE]
+    python3 scripts/tune_microfe_torch.py [--fastpath] [--driven-every K] [--out FILE]
 
 The engine is the production RVE's (micro_n=10, layers along y, the soft
 phase E=1e6, nu=0.3, Sy=1e4, Ka=1e7) in f32, every GP solved in full (no
@@ -11,6 +11,11 @@ elastic fast path), on 1,024 strains drawn from a numpy generator
 seeded 3 (normal x 1e-4).  The sweep is precond in {jacobi,
 dense_elastic} x gp_chunk in {128, 256, 512}; ``--fastpath`` adds the same
 engine on the elastic fast path over screen_chunk in {128, 256, 512, 1024}.
+On that draw the fast path's screen settles every GP; ``--driven-every
+10`` drives every 10th strain 600x past the soft phase's yield (how
+bench_torch.py's ``bench_microfe_partial`` builds its population, on this
+script's numpy draw), so the fast path solves those GPs in full, as in an
+FE² step where plasticity is local.
 
 Each rate is GP/s of one homogenize: the median of 3 host-clock samples
 around a synchronised call, each from the same initial state (the full
@@ -30,10 +35,8 @@ versions).  The full JSON goes to ``--out`` (default
 from __future__ import annotations
 
 import argparse
-import json
 import os
 import sys
-import traceback
 
 import numpy as np
 import torch
@@ -51,11 +54,19 @@ SCREEN_CHUNKS = (128, 256, 512, 1024)
 # stresses of every configuration against the first one's, relative to
 # its largest entry: the micro CG tolerance at f32
 STRESS_RTOL = 1e-4
+# the factor past the elastic draw that takes a driven GP far past the soft
+# phase's yield
+DRIVE = 600.0
 
 
-def strains(n_gps: int) -> np.ndarray:
-    """The swept macro strains (n_gps, 6): normal x 1e-4, seed 3."""
-    return np.random.default_rng(3).standard_normal((n_gps, 6)) * 1e-4
+def strains(n_gps: int, driven_every: int = 0) -> np.ndarray:
+    """The swept macro strains (n_gps, 6): normal x 1e-4, seed 3; with
+    ``driven_every`` k, every k-th strain times DRIVE (at k=10 as
+    bench_torch.py's ``bench_microfe_partial`` drives its draw)."""
+    eps = np.random.default_rng(3).standard_normal((n_gps, 6)) * 1e-4
+    if driven_every:
+        eps[::driven_every] *= DRIVE
+    return eps
 
 
 def rate(precond="auto", chunk=0, n_gps=N_GPS, micro_n=MICRO_N, dtype=torch.float32, eps=None,
@@ -104,22 +115,21 @@ def configurations(fastpath: bool):
 
 
 def sweep(configs, n_gps=N_GPS, micro_n=MICRO_N, dtype=torch.float32, device=None,
-          timings=None):
-    """``rate`` of each configuration on the same strains; returns (rows,
-    failures): per label GP/s, capped micro solves and the stresses'
-    largest deviation from the first configuration's, and the labels that
-    raised or missed STRESS_RTOL."""
-    eps = strains(n_gps)
+          timings=None, driven_every=0):
+    """``rate`` of each configuration on the same strains
+    (``strains(n_gps, driven_every)``); returns (rows, failures): per label
+    GP/s, capped micro solves and the stresses' largest deviation from the
+    first configuration's, and the labels that raised or missed
+    STRESS_RTOL."""
+    from macroc_tpu_torch.utils.profiling import guarded
+
+    eps = strains(n_gps, driven_every)
     rows, failures, ref = {}, [], None
     for c in configs:
         name = label(**c)
-        try:
-            r = rate(**c, micro_n=micro_n, dtype=dtype, eps=eps, device=device,
-                     timings=timings)
-        except Exception as e:  # noqa: BLE001 - report it, go on with the sweep
-            traceback.print_exc()
-            print(f"{name}: FAILED: {str(e)[:200]}", flush=True)
-            failures.append(name)
+        r = guarded(name, lambda: rate(**c, micro_n=micro_n, dtype=dtype, eps=eps,
+                                       device=device, timings=timings), failures)
+        if r is None:
             continue
         if ref is None:
             ref = r["stress"]
@@ -134,31 +144,27 @@ def sweep(configs, n_gps=N_GPS, micro_n=MICRO_N, dtype=torch.float32, device=Non
 
 
 def main(argv=None) -> int:
-    from bench_torch import device_description
     from macroc_tpu_torch.cli import device_from_env
+    from macroc_tpu_torch.utils.profiling import finish
     from macroc_tpu_torch.utils.runtime import setup_runtime
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--fastpath", action="store_true",
                     help="add the elastic fast path over screen_chunk")
+    ap.add_argument("--driven-every", type=int, default=0,
+                    help="drive every k-th strain 600x past yield (0: none)")
     ap.add_argument("--out", default=os.path.join(REPO, "build", "tune_microfe_torch.json"))
     args = ap.parse_args(argv)
     setup_runtime()
     device = device_from_env()
     t = Timings(device)
     rows, failures = sweep(configurations(args.fastpath), N_GPS, MICRO_N, device=device,
-                           timings=t)
-    result = dict(device=device_description(device), torch=torch.__version__,
-                  cuda=torch.version.cuda, n_gps=N_GPS, micro_n=MICRO_N,
-                  dtype="float32", rows=rows, failures=failures, timing_spreads=t.spreads)
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    with open(args.out, "w") as f:
-        json.dump(result, f, indent=1)
+                           timings=t, driven_every=args.driven_every)
     best = max(rows, key=lambda k: rows[k]["gp_per_s"]) if rows else None
-    print(json.dumps(dict(best=best, gp_per_s=rows[best]["gp_per_s"] if best else None,
-                          failures=failures, device=result["device"],
-                          out=os.path.abspath(args.out))), flush=True)
-    return 1 if failures else 0
+    record = dict(n_gps=N_GPS, micro_n=MICRO_N, dtype="float32",
+                  driven_every=args.driven_every, rows=rows, timing_spreads=t.spreads)
+    headline = dict(best=best, gp_per_s=rows[best]["gp_per_s"] if best else None)
+    return finish(args.out, record, headline, failures, device)
 
 
 if __name__ == "__main__":

@@ -13,7 +13,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:
     sys.path.insert(0, REPO)
 
-from bench_torch import load_script  # noqa: E402,F401
+from macroc_tpu_torch.utils.profiling import load_script  # noqa: E402,F401
 
 JAX_TIMEOUT_S = 300
 # the head of every JAX program: the CPU, float64 available, no persistent

@@ -30,7 +30,7 @@ if REPO not in sys.path:
     sys.path.insert(0, REPO)
 
 import bench_torch  # noqa: E402
-from macroc_tpu_torch.utils.profiling import Timings  # noqa: E402
+from macroc_tpu_torch.utils.profiling import Timings, load_script  # noqa: E402
 
 # the JAX bench functions, each with the tiny shapes the port runs too
 JAX_PROGRAM = r"""
@@ -208,7 +208,7 @@ def test_microfe_rates(port):
 
 
 def test_profile_newton_returns_every_phase():
-    prof = bench_torch.load_script("profile_newton_torch")
+    prof = load_script("profile_newton_torch")
     res = prof.main(n=9, device="cpu", timings=Timings("cpu", reps=1))
     assert set(res) == set(prof.PHASES) | {"sum(hom+linsolve)"}
     assert all(v > 0 for v in res.values())

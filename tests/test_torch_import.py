@@ -75,7 +75,8 @@ def test_bench_entry_points_leave_jax_and_the_jax_package_out():
     _run(
         "import sys\n"
         "import bench_torch\n"
-        "bench_torch.load_script('profile_newton_torch')\n"
+        "from macroc_tpu_torch.utils.profiling import load_script\n"
+        "load_script('profile_newton_torch')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'macroc_tpu'))\n"
         "assert not bad, bad\n"
     )

@@ -101,3 +101,44 @@ def test_scripts_want_the_card_by_default(monkeypatch, tmp_path, script):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         common.load_script(script).main(["--out", str(tmp_path / "out.json")])
     assert not (tmp_path / "out.json").exists()
+
+
+@pytest.mark.parametrize("fail", [False, True])
+def test_guarded_reports_a_failure_and_goes_on(capsys, fail):
+    """``guarded``: the result of a call that returns; for one that raises,
+    None, its name among the failures and a FAILED line printed."""
+    from macroc_tpu_torch.utils.profiling import guarded
+
+    def fn():
+        if fail:
+            raise ValueError("made to fail")
+        return {"ok": 1}
+
+    failures = ["earlier"]
+    r = guarded("cfg", fn, failures)
+    printed = capsys.readouterr()
+    assert r == (None if fail else {"ok": 1})
+    assert failures == (["earlier", "cfg"] if fail else ["earlier"])
+    assert ("cfg: FAILED: made to fail" in printed.out) == fail
+    assert ("ValueError" in printed.err) == fail
+
+
+@pytest.mark.parametrize("failures", [[], ["a", "b"]])
+def test_finish_writes_the_record_and_prints_the_headline_last(capsys, tmp_path, failures):
+    """``finish``: the record with the device, the versions and the
+    failures in the JSON file (its folder made), the headline with the
+    failures, the device and the path as the last line printed, and exit
+    code 1 exactly when something failed."""
+    import torch
+
+    from macroc_tpu_torch.utils.profiling import finish
+
+    out = tmp_path / "new" / "out.json"
+    print("before")
+    code = finish(str(out), dict(rows={"x": 1.5}), dict(best="x"), failures, "cpu")
+    record = json.loads(out.read_text())
+    last = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert code == int(bool(failures))
+    assert record == dict(rows={"x": 1.5}, device="cpu", torch=torch.__version__,
+                          cuda=torch.version.cuda, failures=failures)
+    assert last == dict(best="x", failures=failures, device="cpu", out=str(out))

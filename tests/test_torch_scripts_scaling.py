@@ -89,7 +89,7 @@ def test_main_exits_non_zero_on_a_failed_count(monkeypatch, on_cpu, tmp_path, ca
     printed = capsys.readouterr().out
     result = json.loads(out.read_text())
     assert code == int(fail)
-    assert result["failures"] == ([2] if fail else [])
+    assert result["failures"] == (["devices=2"] if fail else [])
     assert sorted(result["results"]) == (["1"] if fail else ["1", "2"])
     assert result["results"]["1"]["speedup"] == 1.0
     assert ("devices=2: FAILED" in printed) == fail

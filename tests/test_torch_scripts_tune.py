@@ -3,7 +3,8 @@
 ``rate``'s stresses for each (precond, gp_chunk) and on the elastic fast
 path for two screen_chunk values, at micro_n=2 on 64 GPs, within 1e-10 of
 the jitted JAX ``MicroFEEngine.homogenize`` on the same numpy-seeded
-strains and settings (the micro CG tolerance lets another summation order
+strains and settings, also on the draw with every 10th strain driven past
+yield (``--driven-every 10``: the fast path then solves those in full) (the micro CG tolerance lets another summation order
 move the last bits: tests/test_torch_microfe.py's bound); the same count
 of micro solves at the Newton cap.  And the script's exit code: 1 when a
 configuration fails, 0 otherwise."""
@@ -30,13 +31,22 @@ CONFIGS = {
     "fastpath_16": dict(fastpath=True, screen_chunk=16),
     "fastpath_32": dict(fastpath=True, screen_chunk=32),
 }
-JAX_PROGRAM = f"CONFIGS = {CONFIGS!r}\n" + r"""
+# the same engines on the driven draw (every 10th strain 600x)
+DRIVEN = {
+    "driven_dense_elastic_16": dict(precond="dense_elastic", chunk=16),
+    "driven_fastpath_16": dict(fastpath=True, screen_chunk=16),
+    "driven_fastpath_32": dict(fastpath=True, screen_chunk=32),
+}
+JAX_PROGRAM = f"CONFIGS = {dict(CONFIGS, **DRIVEN)!r}\n" + r"""
 from macroc_tpu.config import MIC_LAYER_Y, MaterialParams
 from macroc_tpu.constitutive.microfe import MicroFEEngine
 
-eps = jnp.asarray(np.random.default_rng(3).standard_normal((64, 6)) * 1e-4)
+draw = np.random.default_rng(3).standard_normal((64, 6)) * 1e-4
+driven = draw.copy()
+driven[::10] *= 600.0
 out = {}
 for key in sys.argv[1].split(","):
+    eps = jnp.asarray(driven if key.startswith("driven_") else draw)
     c = {**dict(precond="auto", chunk=0, fastpath=False, screen_chunk=0), **CONFIGS[key]}
     eng = MicroFEEngine(n=2, micro_type=MIC_LAYER_Y, mat1=MaterialParams(),
                         mat2=MaterialParams(E=1.0e6, nu=0.3, Sy=1.0e4, Ka=1.0e7),
@@ -47,7 +57,8 @@ for key in sys.argv[1].split(","):
     out[key] = dict(stress=np.asarray(r.stress).tolist(), capped=int(jnp.sum(r.unconverged)))
 print("JAX " + json.dumps(out), flush=True)
 """
-GROUPS = ("jacobi_16,dense_elastic_32,fastpath_16", "jacobi_32,dense_elastic_16,fastpath_32")
+GROUPS = ("jacobi_16,dense_elastic_32,fastpath_16,driven_fastpath_32",
+          "jacobi_32,dense_elastic_16,fastpath_32", "driven_dense_elastic_16,driven_fastpath_16")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -57,15 +68,21 @@ def jax_side():
     runs.close()
 
 
-def test_the_strains_are_the_seeded_draw():
-    eps = tune.strains(N_GPS)
-    assert np.array_equal(eps, np.random.default_rng(3).standard_normal((N_GPS, 6)) * 1e-4)
+@pytest.mark.parametrize("driven_every", [0, 10])
+def test_the_strains_are_the_seeded_draw(driven_every):
+    eps = tune.strains(N_GPS, driven_every)
+    want = np.random.default_rng(3).standard_normal((N_GPS, 6)) * 1e-4
+    if driven_every:
+        want[::10] *= 600.0
+    assert np.array_equal(eps, want)
 
 
-@pytest.mark.parametrize("key", list(CONFIGS))
+@pytest.mark.parametrize("key", list(CONFIGS) + list(DRIVEN))
 def test_rate_matches_the_jax_engine(jax_side, key):
-    r = tune.rate(**CONFIGS[key], micro_n=MICRO_N, dtype=torch.float64,
-                  eps=tune.strains(N_GPS), device="cpu", timings=Timings("cpu", reps=1))
+    config = CONFIGS.get(key) or DRIVEN[key]
+    eps = tune.strains(N_GPS, 10 if key in DRIVEN else 0)
+    r = tune.rate(**config, micro_n=MICRO_N, dtype=torch.float64, eps=eps, device="cpu",
+                  timings=Timings("cpu", reps=1))
     want = jax_side(key)
     assert common.rel(r["stress"], want["stress"]) < 1e-10
     assert r["capped"] == want["capped"]
