@@ -31,6 +31,16 @@ non-zero without the result line):
                beside the same call reading B on every launch and the
                earlier two-stage path (stage-1 matmul + combine kernel),
                with each path's peak memory;
+  4b. cg     — the fused PCG iteration's kernels (K1's p.q form, the two
+               update kernels of csrc/cg_fused.cu) against their plain
+               versions at 128^3 and every path node shape, f32 and f64,
+               two launches bitwise equal, each timed at 128^3 f32 beside
+               K1; a 128^3 Jacobi solve of the BC-eliminated elastic
+               stencil through the fused loop against the same loop on the
+               plain versions and against the unfused loop (K1 behind an
+               opaque operator), ms per iteration each; and the CLI on the
+               main line with -pc_type jacobi (the benchmark's Jacobi
+               cell), with the fused kernels' counters read around it;
   5. goldens — the four J2 CG goldens, the GMRES golden and the FE² golden
                (tests/goldens/*.json) at f64 through the kernels;
   6. main    — ``macroc_tpu_torch.cli`` on the 128^3 J2 + MG bending case,
@@ -513,6 +523,219 @@ def phase_k2(dev, path_shapes):
                 peak_gib=peak["fused"], two_stage_peak_gib=peak["two-stage"])
 
 
+# the fused PCG iteration's checks: kernels and solves at the main line's
+# fine grid; the CLI on the main line with Jacobi (the benchmark's Jacobi cell)
+CG_GRID = (128, 128, 128)
+JACOBI_FLAGS = MAIN_FLAGS + ["-pc_type", "jacobi"]
+# the 128^3 Jacobi solve at rtol 1e-5: the fused loop against the same loop
+# on the plain versions, x's max deviation over its largest value.  x
+# carries each loop's roundoff through ~540 iterations: measured 2.8e-5
+# (f32) and 5.4e-13 (f64) on an H100; bounds at ~10x and ~200x that
+CG_SOLVE_TOL = {torch.float32: 3e-4, torch.float64: 1e-10}
+CG_SOLVE_ITS = 1
+
+
+def cg_state(like, rz, maxits=1 << 30, tol=-1.0):
+    """A CGState on ``like``'s device after a made-up iteration 0; the
+    defaults never stop (timing)."""
+    from macroc_tpu_torch.ops.cg_fused import CGState
+
+    return CGState(like.device, rz=rz, rnorm0=1.0, tol=tol, div=math.inf, abstol=1e-50,
+                   maxits=maxits, reason0=0, pnorm=True, nodes=like[0].numel(),
+                   record_trace=maxits < 1000)
+
+
+def cg_clone(state, like):
+    new = cg_state(like, 0.0, maxits=int(state.st[3]))
+    for name in ("sc", "st", "trace"):
+        getattr(new, name).copy_(getattr(state, name))
+    return new
+
+
+def cg_step_fields(state):
+    """The state's scalars (0-7), flags and counts (8-13) and the first
+    trace entries (14-15) as one float64 vector; NaN (an unwritten trace
+    entry) as 0."""
+    return torch.cat([state.sc, state.st.double(), state.trace[:2]]).nan_to_num()
+
+
+def phase_cg(dev, path_shapes):
+    """The fused PCG iteration's three kernels against their plain
+    versions, then a 128^3 Jacobi solve through the three loops, then the
+    CLI's Jacobi line (module docstring, phase 4b)."""
+    from functools import partial
+
+    from macroc_tpu_torch import MacroConfig, MaterialParams
+    from macroc_tpu_torch import bc as tbc
+    from macroc_tpu_torch.constitutive.elastic import elastic_matrix
+    from macroc_tpu_torch.fem.element import b_matrix
+    from macroc_tpu_torch.grid import make_grid
+    from macroc_tpu_torch.ops.assembly import assemble_stencil_soa_kernel
+    from macroc_tpu_torch.ops.cg_fused import (
+        cg_update_p,
+        cg_update_p_plain,
+        cg_update_xr,
+        cg_update_xr_plain,
+    )
+    from macroc_tpu_torch.ops.stencil_spmv import (
+        stencil_matvec,
+        stencil_matvec_dot,
+        stencil_matvec_dot_plain,
+        stencil_matvec_soa,
+    )
+    from macroc_tpu_torch.solve.cg import cg_solve
+    from macroc_tpu_torch.solve.precond import jacobi_precond_soa
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    rec = {}
+    for shape in [CG_GRID] + [s for s in path_shapes if s != CG_GRID]:
+        errs = []
+        for dtype, tol in TOLS.items():
+            rnd = lambda *sh: torch.randn(sh, dtype=dtype, device=dev, generator=gen)
+            # a dominant positive diagonal keeps p.Ap, and so alpha, away
+            # from cancellation, as on a solve's SPD operator
+            A = 0.1 * rnd(27, 3, 3, *shape)
+            A[13].diagonal(dim1=0, dim2=1).add_(3.0)
+            p, x, r = (rnd(3, *shape) for _ in range(3))
+            inv = rnd(3, *shape).abs() + 0.5  # a Jacobi inverse diagonal is positive
+            st0 = cg_state(p, 2.0, maxits=40, tol=1e-30)
+            out = {}
+            for name, (mv, xr, up) in {
+                    "kernel": (stencil_matvec_dot, cg_update_xr, cg_update_p),
+                    "plain": (stencil_matvec_dot_plain, cg_update_xr_plain,
+                              cg_update_p_plain)}.items():
+                reps = []
+                for _ in range(2 if name == "kernel" else 1):
+                    st = cg_clone(st0, p)
+                    q = torch.empty_like(p)
+                    xx, rr, pp = x.clone(), r.clone(), p.clone()
+                    mv(A, pp, q, st)
+                    after_dot = cg_step_fields(st)
+                    xr(xx, pp, rr, q, inv, st)
+                    up(pp, rr, inv, st)
+                    reps.append(dict(q=q, dot=after_dot, x=xx, r=rr, p=pp,
+                                     end=cg_step_fields(st)))
+                if name == "kernel":
+                    check(all(torch.equal(reps[0][k], reps[1][k]) for k in reps[0]),
+                          f"cg kernels: two launches differ at {shape} {dtype}")
+                out[name] = reps[0]
+            k, pl = out["kernel"], out["plain"]
+            e = {f: rel_err(k[f], pl[f]) for f in ("q", "x", "r", "p")}
+            # p.q has cancelling terms: its error is held against the sum of
+            # |p_i q_i|; rz and rnorm are sums of positive terms; each
+            # scalar against its own magnitude
+            pq_scale = float((p * pl["q"]).abs().sum(dtype=torch.float64))
+            e["pq"] = float((k["dot"][1] - pl["dot"][1]).abs()) / pq_scale
+            scal = lambda a, b: float(((a - b).abs() / b.abs()).max())
+            e["alpha"] = scal(k["dot"][2], pl["dot"][2])
+            e["rz,beta,rnorm,trace"] = scal(k["end"][[0, 3, 4, 15]], pl["end"][[0, 3, 4, 15]])
+            check(torch.equal(k["end"][8:14], pl["end"][8:14]),
+                  f"cg kernels: its/reason/active differ at {shape} {dtype}")
+            bad = {f: v for f, v in e.items() if not v < tol}
+            check(not bad, f"cg kernels disagree with their plain versions at {shape} "
+                  f"{dtype}: {bad}")
+            errs.append(f"{str(dtype)[6:]} " + ", ".join(f"{f} {v:.2e}" for f, v in e.items()))
+            if shape == CG_GRID and dtype == torch.float32:
+                rec["abs"] = {f: float((k[f] - pl[f]).abs().max()) for f in ("q", "x", "r", "p")}
+                rec["A"], rec["p"], rec["x"], rec["r"], rec["inv"] = A, p, x, r, inv
+            else:
+                del A
+        log(f"[cg] {shape}: max rel err " + "; ".join(errs)
+            + f" (bounds {TOLS[torch.float32]:g}, {TOLS[torch.float64]:g}); two launches "
+            "bitwise equal")
+    # timed at 128^3 f32 beside K1, on a state that never stops
+    A, p, x, r, inv = (rec.pop(k) for k in ("A", "p", "x", "r", "inv"))
+    q = torch.empty_like(p)
+    nodes = math.prod(CG_GRID)
+    st = cg_state(p, 2.0)
+    stp = cg_state(p, 2.0)
+    t = {
+        "K1": time_ms(lambda: stencil_matvec(A, p), 50),
+        "K1_dot": time_ms(lambda: stencil_matvec_dot(A, p, q, st), 50),
+        "K1_dot_plain": time_ms(lambda: stencil_matvec_dot_plain(A, p, q, stp), 5),
+        "xr": time_ms(lambda: cg_update_xr(x, p, r, q, inv, st), 50),
+        "xr_plain": time_ms(lambda: cg_update_xr_plain(x, p, r, q, inv, stp), 5),
+        "p": time_ms(lambda: cg_update_p(p, r, inv, st), 50),
+        "p_plain": time_ms(lambda: cg_update_p_plain(p, r, inv, stp), 5),
+    }
+    check(bool(st.st[2]) and int(st.st[0]) > 50, "cg: the timing state stopped")
+    work = {"K1_dot": ((243 + 6) * 4 * nodes, 2 * 243 * nodes + 6 * nodes),
+            "xr": (7 * 4 * 3 * nodes, 12 * 3 * nodes), "p": (4 * 4 * 3 * nodes, 3 * 3 * nodes)}
+    kern = {}
+    for name in ("K1_dot", "xr", "p"):
+        b_ms, b_by = bound(*work[name])
+        kern[name] = dict(max_abs_err=rec["abs"]["q" if name == "K1_dot" else
+                                                 "r" if name == "xr" else "p"],
+                          ms=t[name], plain_ms=t[name + "_plain"], bound_ms=b_ms,
+                          bound_by=b_by, library_ms=None)
+    kern["xr"]["max_abs_err"] = max(rec["abs"]["x"], rec["abs"]["r"])
+    log("[cg] 128^3 f32: " + ", ".join(
+        f"{n} {t[n]:.4f} ms (bound {kern[n]['bound_ms']:.4f}, "
+        f"{kern[n]['bound_ms'] / t[n]:.2f} of it; plain {t[n + '_plain']:.4f})"
+        for n in ("K1_dot", "xr", "p")) + f"; K1 {t['K1']:.4f} ms, so the p.q epilogue "
+        f"costs {t['K1_dot'] - t['K1']:+.4f} ms; one fused iteration "
+        f"{t['K1_dot'] + t['xr'] + t['p']:.4f} ms of kernels")
+    del A, p, x, r, inv, q, st, stp
+    # a 128^3 Jacobi solve: the BC-eliminated elastic stencil of the main
+    # line's grid, a seeded right-hand side zero on constrained rows
+    cfg = MacroConfig(nx=CG_GRID[0], ny=CG_GRID[1], nz=CG_GRID[2], lx=4.0, ly=4.0,
+                      lz=4.0, bc_type=0)
+    grid = make_grid(cfg, 1)
+    shape = (grid.nx, grid.ny, grid.nz)
+    solves = {}
+    b64 = torch.randn((3,) + shape, dtype=torch.float64, device=dev, generator=gen)
+    for dtype in (torch.float64, torch.float32):
+        Bm = torch.as_tensor(b_matrix(grid.spacing), dtype=dtype, device=dev)
+        C = torch.as_tensor(elastic_matrix(MaterialParams()), dtype=dtype, device=dev)
+        ctan = C.expand(tuple(n - 1 for n in shape) + (8, 6, 6)).contiguous()
+        bc = tbc.build_bc(grid, cfg, dtype, dev)
+        A = tbc.apply_bc_stencil_soa(assemble_stencil_soa_kernel(ctan, Bm, grid.wg, shape), bc)
+        del ctan
+        b = b64.to(dtype).masked_fill(bc.mask.permute(3, 0, 1, 2), 0.0)
+        M = jacobi_precond_soa(A)
+        loops = {"fused": (partial(stencil_matvec, A), M),
+                 "plain": (partial(stencil_matvec_soa, A), M),
+                 "unfused": (lambda v: stencil_matvec(A, v), lambda v: M(v))}
+        res = {}
+        for name, (mv, pc) in loops.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = cg_solve(mv, b, pc)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            true_res = float((b - stencil_matvec(A, out.x)).norm() / b.norm())
+            res[name] = dict(its=out.its, reason=out.reason, ms_per_it=sec * 1e3 / out.its,
+                             x=out.x, true_res=true_res)
+        ref = res["plain"]
+        for name, v in res.items():
+            v["x_err"] = rel_err(v["x"], ref["x"])
+            v["x_err_f64"] = rel_err(v["x"].double(), solves[torch.float64]["plain"]["x"]
+                                     if dtype == torch.float32 else ref["x"])
+        log(f"[cg] 128^3 Jacobi solve {str(dtype)[6:]}: " + "; ".join(
+            f"{n} {v['its']} its (reason {v['reason']}), {v['ms_per_it']:.4f} ms/it, "
+            f"x rel dev from the plain loop {v['x_err']:.2e} (from the f64 plain loop "
+            f"{v['x_err_f64']:.2e}), |b-Ax|/|b| {v['true_res']:.2e}" for n, v in res.items())
+            + f" (bounds: its within {CG_SOLVE_ITS}, x {CG_SOLVE_TOL[dtype]:g})")
+        for name, v in res.items():
+            check(v["reason"] > 0 and abs(v["its"] - ref["its"]) <= CG_SOLVE_ITS
+                  and v["x_err"] < CG_SOLVE_TOL[dtype],
+                  f"cg: the {name} loop's {dtype} solve disagrees with the plain loop's")
+        solves[dtype] = res
+        del A, b, M, loops
+    del b64
+    for res in solves.values():
+        for v in res.values():
+            del v["x"]
+    for name in ("xr", "p", "K1_dot"):
+        kern[name]["solve_ms_per_it"] = {str(d)[6:]: {n: v["ms_per_it"] for n, v in r.items()}
+                                         for d, r in solves.items()}
+    del solves
+    # the CLI's Jacobi line: the fused kernels on a driven path
+    _, launches = drive_cli("jacobi", JACOBI_FLAGS,
+                            need=("K1", "K2", "K1_dot", "cg_update_xr", "cg_update_p"))
+    return kern, launches
+
+
 def golden_configs():
     from macroc_tpu_torch import MacroConfig, MaterialParams
 
@@ -607,7 +830,8 @@ def drive_cli(tag, flags, out_dir=None, ckpt_dir=None, need=("K1", "K2")):
     (result, launches)."""
     from macroc_tpu_torch import cli
     from macroc_tpu_torch.ops.assembly import assemble_stencil_soa_kernel
-    from macroc_tpu_torch.ops.stencil_spmv import stencil_matvec
+    from macroc_tpu_torch.ops.cg_fused import cg_update_p, cg_update_xr
+    from macroc_tpu_torch.ops.stencil_spmv import stencil_matvec, stencil_matvec_dot
 
     log(f"[{tag}] python -m macroc_tpu_torch " + " ".join(flags))
     with tempfile.TemporaryDirectory() as tmp:
@@ -619,11 +843,15 @@ def drive_cli(tag, flags, out_dir=None, ckpt_dir=None, need=("K1", "K2")):
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         stencil_matvec.launches = stencil_matvec.narrow_launches = 0
+        stencil_matvec_dot.launches = cg_update_xr.launches = cg_update_p.launches = 0
         assemble_stencil_soa_kernel.launches = 0
         result = cli.run(argv)
         launches = dict(K1=stencil_matvec.launches,
                         K1_narrow=stencil_matvec.narrow_launches,
-                        K2=assemble_stencil_soa_kernel.launches)
+                        K2=assemble_stencil_soa_kernel.launches,
+                        K1_dot=stencil_matvec_dot.launches,
+                        cg_update_xr=cg_update_xr.launches,
+                        cg_update_p=cg_update_p.launches)
     peak = torch.cuda.max_memory_allocated()
     maxits = cli.parse_cli(argv).ksp_maxits
     for h in result["history"]:
@@ -637,7 +865,8 @@ def drive_cli(tag, flags, out_dir=None, ckpt_dir=None, need=("K1", "K2")):
     check(bool(torch.isfinite(result["u"]).all()), f"{tag}: non-finite displacement")
     check(bool(torch.isfinite(result["state"].eps_p).all()), f"{tag}: non-finite plastic strain")
     log(f"[{tag}] launches during the run: K1 {launches['K1']} (narrow operator "
-        f"{launches['K1_narrow']}), K2 {launches['K2']}; "
+        f"{launches['K1_narrow']}, p.q form {launches['K1_dot']}), K2 {launches['K2']}, "
+        f"cg_update_xr {launches['cg_update_xr']}, cg_update_p {launches['cg_update_p']}; "
         f"peak device memory {peak / 2**30:.2f} GiB ({base / 2**30:.2f} GiB held "
         f"before the run); phases (s) "
         + json.dumps({k: round(v, 4) for k, v in result["phases"].items()}))
@@ -1412,7 +1641,7 @@ def phase_scripts(dev):
     return launches
 
 
-PHASES = ("k1", "k1v1", "k2", "goldens", "main", "solvers", "checkpoint", "profile",
+PHASES = ("k1", "k1v1", "k2", "cg", "goldens", "main", "solvers", "checkpoint", "profile",
           "microfe", "fe2", "dist", "bench", "scripts")
 
 
@@ -1433,12 +1662,12 @@ def main():
     log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     phase_build()
-    path_shapes = path_node_shapes(dev) if {"k1", "k2"} & set(only) else []
+    path_shapes = path_node_shapes(dev) if {"k1", "k2", "cg"} & set(only) else []
     got = {}
     t_all = time.perf_counter()
     for name in only:
         t0 = time.perf_counter()
-        args = (path_shapes,) if name in ("k1", "k2") else ()
+        args = (path_shapes,) if name in ("k1", "k2", "cg") else ()
         got[name] = globals()[f"phase_{name}"](dev, *args)
         torch.cuda.empty_cache()
         log(f"[time] phase {name}: {time.perf_counter() - t0:.1f} s")
@@ -1485,6 +1714,20 @@ def main():
              replaces="macroc_tpu/ops/stencil_pallas.py:223",
              launches=got["solvers"], **k1_narrow),
     ]
+    # the fused PCG iteration's kernels (port-only): ``launches`` is the
+    # CLI's Jacobi line's count (the MG main line does not run them)
+    cg_kern, cg_launches = got["cg"]
+    port_only = ("none: port-only; the JAX package's CG is one lax.while_loop "
+                 "(macroc_tpu/solve/cg.py:127) that XLA fuses")
+    for name, key, src, counter in (
+            ("stencil_spmv p.q form (K1 dot)", "K1_dot", "stencil_spmv.cu", "K1_dot"),
+            ("cg_update_xr", "xr", "cg_fused.cu", "cg_update_xr"),
+            ("cg_update_p", "p", "cg_fused.cu", "cg_update_p")):
+        kernels.append(dict(name=name, route="cuda", source=f"macroc_tpu_torch/csrc/{src}",
+                            replaces=port_only, launches=cg_launches[counter],
+                            launches_by_path={"j2_128_jacobi": cg_launches[counter],
+                                              "j2_128": got["main"][counter]},
+                            **cg_kern[key]))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -27,10 +27,19 @@
 // neighbours are skipped by bounds checks, so x needs no padding.  The
 // TPU kernel's aligned halo ring (8 in y, 128 in z) and its 128-multiple
 // padding of A exist only for the TPU's (8,128) tiles and are dropped.
+//
+// The p.q form (DOT = true; port-only, for solve/cg.py's fused PCG loop):
+// the same kernel, which also sums p.q over its block and, in the last
+// block to finish, over the blocks in a fixed order, and sets the solve's
+// device scalars p.q and alpha = rz / p.q (cg_state.cuh).  It returns at
+// once when the solve's active flag is 0.  f32 and f64, A and x of one
+// type, no halo.  It reads and writes what K1 does, so its bound is K1's.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include "cg_state.cuh"
 
 namespace {
 
@@ -42,58 +51,81 @@ __device__ __forceinline__ float widen(__nv_bfloat16 v) {
 }
 __device__ __forceinline__ float widen(__half v) { return __half2float(v); }
 
-template <typename TA, typename TX>
+template <typename TA, typename TX, bool DOT>
 __global__ void stencil_spmv_kernel(const TA* __restrict__ A,
                                     const TX* __restrict__ x,
                                     TX* __restrict__ y,
-                                    int nx, int ny, int nz, int halo) {
+                                    int nx, int ny, int nz, int halo,
+                                    double* __restrict__ partials,
+                                    double* __restrict__ sc, int* __restrict__ st) {
+  using namespace macroc_cg;
+  if (DOT && st[ST_ACTIVE] == 0) return;
   const long long n = (long long)nx * ny * nz;
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  const int k = (int)(p % nz);
-  const int j = (int)((p / nz) % ny);
-  const int i = (int)(p / ((long long)ny * nz));
-
-  // x geometry: core node (i,j,k) sits at (i+h, j+h, k+h) of an
-  // (nx+2h, ny+2h, nz+2h) box; neighbours within [-h, n-1+h] exist.
-  const int h = halo ? 1 : 0;
-  const int xy = ny + 2 * h, xz = nz + 2 * h;
-  const long long xs = (long long)(nx + 2 * h) * xy * xz;  // per-dof stride
-
+  // the p.q form needs every thread of a block at its block sum
+  const bool live = p < n;
+  if (!DOT && !live) return;
   TX acc0 = TX(0), acc1 = TX(0), acc2 = TX(0);
+  if (live) {
+    const int k = (int)(p % nz);
+    const int j = (int)((p / nz) % ny);
+    const int i = (int)(p / ((long long)ny * nz));
+
+    // x geometry: core node (i,j,k) sits at (i+h, j+h, k+h) of an
+    // (nx+2h, ny+2h, nz+2h) box; neighbours within [-h, n-1+h] exist.
+    const int h = halo ? 1 : 0;
+    const int xy = ny + 2 * h, xz = nz + 2 * h;
+    const long long xs = (long long)(nx + 2 * h) * xy * xz;  // per-dof stride
+
 #pragma unroll
-  for (int o = 0; o < 27; ++o) {
-    const int ii = i + o / 9 - 1;
-    const int jj = j + (o / 3) % 3 - 1;
-    const int kk = k + o % 3 - 1;
-    if (ii < -h || ii > nx - 1 + h || jj < -h || jj > ny - 1 + h ||
-        kk < -h || kk > nz - 1 + h)
-      continue;
-    const long long q = ((long long)(ii + h) * xy + (jj + h)) * xz + (kk + h);
-    const TX x0 = x[q], x1 = x[q + xs], x2 = x[q + 2 * xs];
-    const TA* a = A + (long long)o * 9 * n + p;
-    acc0 += TX(widen(a[0 * n])) * x0 + TX(widen(a[1 * n])) * x1 +
-            TX(widen(a[2 * n])) * x2;
-    acc1 += TX(widen(a[3 * n])) * x0 + TX(widen(a[4 * n])) * x1 +
-            TX(widen(a[5 * n])) * x2;
-    acc2 += TX(widen(a[6 * n])) * x0 + TX(widen(a[7 * n])) * x1 +
-            TX(widen(a[8 * n])) * x2;
+    for (int o = 0; o < 27; ++o) {
+      const int ii = i + o / 9 - 1;
+      const int jj = j + (o / 3) % 3 - 1;
+      const int kk = k + o % 3 - 1;
+      if (ii < -h || ii > nx - 1 + h || jj < -h || jj > ny - 1 + h ||
+          kk < -h || kk > nz - 1 + h)
+        continue;
+      const long long q = ((long long)(ii + h) * xy + (jj + h)) * xz + (kk + h);
+      const TX x0 = x[q], x1 = x[q + xs], x2 = x[q + 2 * xs];
+      const TA* a = A + (long long)o * 9 * n + p;
+      acc0 += TX(widen(a[0 * n])) * x0 + TX(widen(a[1 * n])) * x1 +
+              TX(widen(a[2 * n])) * x2;
+      acc1 += TX(widen(a[3 * n])) * x0 + TX(widen(a[4 * n])) * x1 +
+              TX(widen(a[5 * n])) * x2;
+      acc2 += TX(widen(a[6 * n])) * x0 + TX(widen(a[7 * n])) * x1 +
+              TX(widen(a[8 * n])) * x2;
+    }
+    y[p] = acc0;
+    y[p + n] = acc1;
+    y[p + 2 * n] = acc2;
   }
-  y[p] = acc0;
-  y[p + n] = acc1;
-  y[p + 2 * n] = acc2;
+  if constexpr (DOT) {
+    // halo == 0: this node's own x is at p
+    const double pq = live ? double(x[p] * acc0) + double(x[p + n] * acc1) +
+                                 double(x[p + 2 * n] * acc2)
+                           : 0.0;
+    const double block = block_sum(pq);
+    if (threadIdx.x == 0) partials[blockIdx.x] = block;
+    if (!last_block(st)) return;
+    const double total = sum_partials(partials, gridDim.x);
+    if (threadIdx.x == 0) {
+      sc[SC_PQ] = total;
+      sc[SC_ALPHA] = sc[SC_RZ] / total;
+    }
+  }
 }
 
-template <typename TA, typename TX>
+template <typename TA, typename TX, bool DOT = false>
 int launch(const void* A, const void* x, void* y, int nx, int ny, int nz,
-           int halo, void* stream) {
+           int halo, void* stream, double* partials = nullptr,
+           double* sc = nullptr, int* st = nullptr) {
   const long long n = (long long)nx * ny * nz;
-  const int threads = 256;
+  const int threads = macroc_cg::THREADS;
   const long long blocks = (n + threads - 1) / threads;
   if (n > 0)
-    stencil_spmv_kernel<TA, TX><<<(unsigned)blocks, threads, 0,
-                                  (cudaStream_t)stream>>>(
-        (const TA*)A, (const TX*)x, (TX*)y, nx, ny, nz, halo);
+    stencil_spmv_kernel<TA, TX, DOT><<<(unsigned)blocks, threads, 0,
+                                       (cudaStream_t)stream>>>(
+        (const TA*)A, (const TX*)x, (TX*)y, nx, ny, nz, halo, partials, sc, st);
   return (int)cudaGetLastError();
 }
 
@@ -114,6 +146,17 @@ MACROC_SPMV_ENTRY(macroc_stencil_spmv_bf16_f64, __nv_bfloat16, double)
 MACROC_SPMV_ENTRY(macroc_stencil_spmv_f16_f32, __half, float)
 MACROC_SPMV_ENTRY(macroc_stencil_spmv_f16_f64, __half, double)
 MACROC_SPMV_ENTRY(macroc_stencil_spmv_f32_f64, float, double)
+
+// the p.q form: partials holds one double per 256 nodes
+#define MACROC_SPMV_DOT_ENTRY(NAME, T)                                      \
+  int NAME(const void* A, const void* x, void* y, int nx, int ny, int nz, \
+           double* partials, double* sc, int* st, void* stream) {         \
+    return launch<T, T, true>(A, x, y, nx, ny, nz, 0, stream, partials,   \
+                              sc, st);                                    \
+  }
+
+MACROC_SPMV_DOT_ENTRY(macroc_stencil_spmv_dot_f32, float)
+MACROC_SPMV_DOT_ENTRY(macroc_stencil_spmv_dot_f64, double)
 
 const char* macroc_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -25,7 +25,9 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 SOURCES = ("stencil_spmv.cu", "stencil_spmv_v1.cu", "assembly_fused.cu",
-           "assembly_combine.cu")
+           "assembly_combine.cu", "cg_fused.cu")
+#: headers the sources include (hashed with them)
+HEADERS = ("cg_state.cuh",)
 BUILD_ROOT = PKG_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -45,6 +47,15 @@ _SIGNATURES = {
         for pair in ("f32", "f64", "bf16_f32", "bf16_f64", "f16_f32", "f16_f64",
                      "f32_f64")
     },
+    # K1's p.q form: (A, p, q, nx, ny, nz, partials, sc, st, stream)
+    "macroc_stencil_spmv_dot_f32": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
+    "macroc_stencil_spmv_dot_f64": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
+    # (x, p, r, q, inv, N, partials, sc, st, trace, stream)
+    "macroc_cg_update_xr_f32": (_P, _P, _P, _P, _P, _L, _P, _P, _P, _P, _P),
+    "macroc_cg_update_xr_f64": (_P, _P, _P, _P, _P, _L, _P, _P, _P, _P, _P),
+    # (p, r, inv, N, sc, st, stream)
+    "macroc_cg_update_p_f32": (_P, _P, _P, _L, _P, _P, _P),
+    "macroc_cg_update_p_f64": (_P, _P, _P, _L, _P, _P, _P),
     # (A, x, y, nx, ny, nz, TX, TY, TZ, stream)
     "macroc_stencil_spmv_v1_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "macroc_stencil_spmv_v1_f64": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
@@ -79,7 +90,7 @@ def _nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC_DIR / name).read_bytes())
     return h.hexdigest()[:16]

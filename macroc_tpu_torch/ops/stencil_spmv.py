@@ -7,7 +7,9 @@ the SpMV metric: 243 stored coefficients per node.
 ``stencil_matvec`` launches K1 (``csrc/stencil_spmv.cu``) and
 ``stencil_matvec_v1`` K1v1 (``csrc/stencil_spmv_v1.cu``, the shared-memory
 tile form) for CUDA tensors; both run ``stencil_matvec_soa`` for CPU
-tensors.  Nothing falls back from one to the other.
+tensors.  ``stencil_matvec_dot`` launches K1's p·q form, the operator of
+``solve/cg.py``'s fused PCG iteration.  Nothing falls back from one to the
+other.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from macroc_tpu_torch.fem.kernels import STENCIL_OFFSETS
+from macroc_tpu_torch.ops.cg_fused import dot64, set_alpha
 
 
 def to_soa(A27: torch.Tensor) -> torch.Tensor:
@@ -114,6 +117,62 @@ _ENTRY = {
     (torch.float16, torch.float32): "macroc_stencil_spmv_f16_f32",
     (torch.float16, torch.float64): "macroc_stencil_spmv_f16_f64",
     (torch.float32, torch.float64): "macroc_stencil_spmv_f32_f64",
+}
+
+
+def stencil_matvec_dot_plain(A_soa, p, q, state) -> None:
+    """K1's p·q form, plain: q = A p in place, then p·q (products in p's
+    type, summed in float64) and α = rz / p·q into the solve's device
+    scalars (``ops/cg_fused.py::CGState``); a no-op once the solve's active
+    flag is 0."""
+    if not state.active():
+        return
+    q.copy_(stencil_matvec_soa(A_soa, p))
+    set_alpha(state, dot64(p, q))
+
+
+def stencil_matvec_dot(A_soa, p, q, state) -> None:
+    """K1's p·q form (``stencil_spmv_kernel<T, T, true>``) on CUDA
+    tensors, its plain version on CPU tensors: q = A p in place, and p·q
+    and α into ``state``.  A, p and q of one dtype, f32 or f64, no halo.
+    Counts its launches in ``stencil_matvec.launches`` (it is K1) and in
+    ``stencil_matvec_dot.launches``."""
+    if not A_soa.is_cuda:
+        return stencil_matvec_dot_plain(A_soa, p, q, state)
+    from macroc_tpu_torch.ops import _build
+
+    nx, ny, nz = A_soa.shape[-3:]
+    if A_soa.shape != (27, 3, 3, nx, ny, nz):
+        raise ValueError(f"A_soa must be (27,3,3,nx,ny,nz), got {tuple(A_soa.shape)}")
+    if p.shape != (3, nx, ny, nz) or q.shape != p.shape:
+        raise ValueError(f"p {tuple(p.shape)} and q {tuple(q.shape)} do not fit A "
+                         f"{(nx, ny, nz)}")
+    entry = _ENTRY_DOT.get(A_soa.dtype)
+    if entry is None or p.dtype != A_soa.dtype or q.dtype != A_soa.dtype:
+        raise TypeError(f"stencil_matvec_dot takes A, p and q of one dtype, float32 "
+                        f"or float64, got {A_soa.dtype}, {p.dtype}, {q.dtype}")
+    _check_device_layout(A_soa, p, "stencil_matvec_dot")
+    if q.device != A_soa.device or not q.is_contiguous():
+        raise ValueError("stencil_matvec_dot needs a contiguous q on A's device")
+    if state.sc.device != A_soa.device or state.partials is None:
+        raise ValueError("stencil_matvec_dot: the CGState is not on A's device")
+    lib = _build.load()
+    with torch.cuda.device(A_soa.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, entry)(
+            A_soa.data_ptr(), p.data_ptr(), q.data_ptr(), nx, ny, nz,
+            state.partials.data_ptr(), state.sc.data_ptr(), state.st.data_ptr(),
+            stream,
+        )
+    _build.check(err, "stencil_matvec_dot (K1 p·q form)")
+    stencil_matvec.launches += 1
+    stencil_matvec_dot.launches += 1
+
+
+stencil_matvec_dot.launches = 0
+_ENTRY_DOT = {
+    torch.float32: "macroc_stencil_spmv_dot_f32",
+    torch.float64: "macroc_stencil_spmv_dot_f64",
 }
 
 

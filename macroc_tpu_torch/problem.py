@@ -350,6 +350,8 @@ class MacroProblem:
                                                partial(assemble, dsh=self.dsh))
             A_soa = bc_mod.apply_bc_stencil_soa(A_soa, self.bc)
         if self.mesh is None:
+            # a partial of the operator function: cg_solve reads A_soa from it
+            # and runs its fused iteration (solve/cg.py)
             matvec = partial(_OPERATORS[plan["operator"]], A_soa)
         else:
             matvec = partial(stencil_matvec_local, A_soa, mesh=self.mesh)

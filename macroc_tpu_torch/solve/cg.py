@@ -7,14 +7,40 @@ of ``macroc_tpu/solve/cg.py``).
   - KSPConvergedDefault: converged when rnorm <= max(rtol * rnorm_0,
     abstol); diverged when rnorm >= dtol * rnorm_0 or its >= maxits.
 
-The convergence test runs on the host every iteration (one device sync per
-iteration), so iteration counts are exact.
+The convergence test runs on the device.  The scalars of the loop (rz,
+alpha, beta, rnorm, its, the reason, an ``active`` flag and the
+``-ksp_monitor`` trace) live in a :class:`~macroc_tpu_torch.ops.cg_fused.CGState`;
+the host reads ``rnorm_0`` once before the loop, the flag every
+``CHECK_EVERY`` iterations, and the result at the end.  Every step of an
+iteration is a no-op while the flag is 0, so the iterations queued after
+convergence change nothing: its, x, rnorm, reason and the trace are those
+of a test after every iteration.
 
-``allreduce`` makes the solve distributed: each rank holds its block of the
-vectors, and every inner product is a local sum all-reduced over the ranks
-(the only collectives of the loop; matvec and precond do their own halo
-work).  The two dots after each update go in one 2-element all-reduce.
-Every branch reads all-reduced values only, so all ranks take it alike.
+Two routes share the loop:
+
+  - fused: the operator is K1's wrapper bound to its stencil
+    (``partial(stencil_matvec, A_soa)``, as ``problem.py`` passes it) and
+    the preconditioner is Jacobi (``jacobi_precond_soa``, which carries its
+    inverse diagonal) or none.  An iteration is three calls, each a kernel
+    on CUDA tensors and its plain version on CPU tensors: K1's p·q form
+    (``ops/stencil_spmv.py::stencil_matvec_dot``), then
+    ``ops/cg_fused.py::cg_update_xr`` and ``cg_update_p``.  Bound to K1's
+    plain version (``partial(stencil_matvec_soa, A_soa)``), the route runs
+    the three plain versions on any device.  Inner products are products
+    in the vectors' type summed in float64.
+  - any other operator or preconditioner (MG, block-Jacobi, matrix-free,
+    a rank's halo matvec, a lambda): its own calls, the dots (summed in
+    the vectors' type) and updates in torch operations and the scalars in
+    the same state, which rounds alpha and beta to the vectors' type as
+    the divisions did.  Its calls do their work even while the flag is 0,
+    so this route reads the flag every iteration.
+
+``allreduce`` makes the solve distributed (always the second route): each
+rank holds its block of the vectors, and every inner product is a local
+sum all-reduced over the ranks (the only collectives of the loop; matvec
+and precond do their own halo work).  The two dots after each update go in
+one 2-element all-reduce.  Every branch reads all-reduced values only, so
+all ranks take it alike.
 
 ``cg_solve_batched`` solves a batch of independent systems with the
 semantics of ``jax.vmap(cg_solve)``: every member has its own dots, rnorm_0,
@@ -25,9 +51,30 @@ iterate frozen while the others go on.
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Callable, NamedTuple, Optional
 
 import torch
+
+from macroc_tpu_torch.ops.cg_fused import (
+    SC_ALPHA,
+    SC_BETA,
+    CGState,
+    dot64,
+    cg_update_p,
+    cg_update_p_plain,
+    cg_update_xr,
+    cg_update_xr_plain,
+    finish_iteration,
+    reason_t as _reason_t,
+    set_alpha,
+)
+from macroc_tpu_torch.ops.stencil_spmv import (
+    stencil_matvec,
+    stencil_matvec_dot,
+    stencil_matvec_dot_plain,
+    stencil_matvec_soa,
+)
 
 # PETSc KSPConvergedReason values (for log parity)
 KSP_CONVERGED_RTOL = 2
@@ -42,6 +89,9 @@ KSP_REASON_NAMES = {
     -3: "DIVERGED_ITS",
     -4: "DIVERGED_DTOL",
 }
+
+#: iterations between two host reads of the fused route's active flag
+CHECK_EVERY = 16
 
 
 class KSPResult(NamedTuple):
@@ -62,18 +112,37 @@ def _identity(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def _reason_t(rnorm, tol, abstol: float, div):
-    """_reason on per-member tensors."""
-    conv = torch.where(rnorm <= abstol, KSP_CONVERGED_ATOL, KSP_CONVERGED_RTOL)
-    return torch.where(
-        rnorm <= tol, conv, torch.where(rnorm >= div, KSP_DIVERGED_DTOL, 0)
-    ).to(torch.int32)
-
-
 def _reason(rnorm: float, tol: float, abstol: float, div: float) -> int:
     if rnorm <= tol:
         return KSP_CONVERGED_ATOL if rnorm <= abstol else KSP_CONVERGED_RTOL
     return KSP_DIVERGED_DTOL if rnorm >= div else 0
+
+
+def _fused_operands(matvec, b, precond, allreduce):
+    """(A_soa, inv, steps) when the fused route can run this solve (module
+    docstring), else None; ``steps`` are its three calls."""
+    if allreduce is not None or not isinstance(matvec, partial):
+        return None
+    if matvec.func not in _FUSED_STEPS or len(matvec.args) != 1 or matvec.keywords:
+        return None
+    A_soa = matvec.args[0]
+    if precond is None:
+        inv = None
+    elif hasattr(precond, "inv"):
+        inv = precond.inv
+    else:
+        return None
+    if (b.dtype not in (torch.float32, torch.float64) or A_soa.dtype != b.dtype
+            or b.shape != (3,) + tuple(A_soa.shape[-3:])
+            or (inv is not None and (inv.shape != b.shape or inv.dtype != b.dtype))):
+        return None
+    return A_soa, inv, _FUSED_STEPS[matvec.func]
+
+
+_FUSED_STEPS = {
+    stencil_matvec: (stencil_matvec_dot, cg_update_xr, cg_update_p),
+    stencil_matvec_soa: (stencil_matvec_dot_plain, cg_update_xr_plain, cg_update_p_plain),
+}
 
 
 def cg_solve(
@@ -92,45 +161,62 @@ def cg_solve(
     """Solve A x = b by PCG; matvec/precond map like-shaped tensors.
     ``allreduce`` sums a tensor of per-rank partial sums over the ranks
     (None: one process)."""
+    fused = _fused_operands(matvec, b, precond, allreduce)
     if precond is None:
-        precond = lambda r: r
+        precond = _identity
     reduce = allreduce or _identity
     use_pnorm = norm_type == "preconditioned"
+    dot = _dot if fused is None else dot64  # as the kernels sum
 
     def dots(r, z):
         """(r.z, monitored norm squared), all-reduced together."""
-        return reduce(torch.stack([_dot(r, z), _dot(z, z) if use_pnorm else _dot(r, r)]))
+        return reduce(torch.stack([dot(r, z), dot(z, z) if use_pnorm else dot(r, r)]))
 
     r = b.clone()  # x0 = 0
     z = precond(r)
     rz, nn = dots(r, z)
-    rnorm0 = math.sqrt(float(nn))
-    x = torch.zeros_like(b)
-    p = z
-
+    rnorm0 = math.sqrt(float(nn))  # the one host read before the loop
     tol = max(rtol * rnorm0, abstol)
-    div = dtol * rnorm0
     # converged already at iteration 0 (e.g. b == 0)?
-    reason = _reason(rnorm0, tol, abstol, math.inf)
-    rnorm = rnorm0
-    trace = [rnorm0] if record_trace else None
-    its = 0
-    while reason == 0 and its < maxits:
-        q = matvec(p)
-        alpha = rz / reduce(_dot(p, q))
-        x += alpha * p
-        # not in place: the identity preconditioner returns r itself, so
-        # z and p may alias it
-        r = r - alpha * q
-        z = precond(r)
-        rz_new, nn = dots(r, z)
-        p = z + (rz_new / rz) * p
-        rz = rz_new
-        rnorm = math.sqrt(float(nn))
-        its += 1
-        reason = _reason(rnorm, tol, abstol, div)
-        if trace is not None:
-            trace.append(rnorm)
+    state = CGState(
+        b.device, rz=rz, rnorm0=rnorm0, tol=tol, div=dtol * rnorm0, abstol=abstol,
+        maxits=maxits, reason0=_reason(rnorm0, tol, abstol, math.inf),
+        pnorm=use_pnorm, nodes=b[0].numel(), record_trace=record_trace,
+    )
+    x = torch.zeros_like(b)
+    if fused is not None:
+        A_soa, inv, (spmv_dot, update_xr, update_p) = fused
+        # the kernels update r and p in place: p must not alias r
+        p = z.clone() if z is r else z
+        q = torch.empty_like(b)
+        check_every = CHECK_EVERY
+
+        def iteration():
+            spmv_dot(A_soa, p, q, state)
+            update_xr(x, p, r, q, inv, state)
+            update_p(p, r, inv, state)
+    else:
+        p = z
+        check_every = 1
+
+        def iteration():
+            nonlocal r, p
+            q = matvec(p)
+            set_alpha(state, reduce(_dot(p, q)))
+            alpha = state.sc[SC_ALPHA].to(b.dtype)
+            x.add_(alpha * p)
+            # not in place: the identity preconditioner returns r itself, so
+            # z and p may alias it
+            r = r - alpha * q
+            z = precond(r)
+            finish_iteration(state, *dots(r, z))
+            p = z + state.sc[SC_BETA].to(b.dtype) * p
+
+    queued = 0
+    while queued < maxits and (queued % check_every or state.active()):
+        iteration()
+        queued += 1
+    its, rnorm, reason, trace = state.result()
     if reason == 0 and its >= maxits:
         reason = KSP_DIVERGED_ITS
     return KSPResult(x=x, its=its, rnorm=rnorm, reason=reason, trace=trace)

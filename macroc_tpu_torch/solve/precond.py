@@ -14,7 +14,12 @@ from macroc_tpu_torch.ops.stencil_spmv import from_soa
 
 
 def identity_precond():
-    return lambda r: r
+    """z = r; ``apply.inv`` is None (cg_solve's fused iteration takes z = r)."""
+    def apply(r):
+        return r
+
+    apply.inv = None
+    return apply
 
 
 def jacobi_precond_flat(Af: torch.Tensor):
@@ -30,12 +35,14 @@ def jacobi_precond_flat(Af: torch.Tensor):
 
 
 def jacobi_precond_soa(A_soa: torch.Tensor):
-    """z = r / diag(A), A_soa (27,3,3,nx,ny,nz)."""
+    """z = r / diag(A), A_soa (27,3,3,nx,ny,nz).  ``apply.inv`` is the
+    (3,nx,ny,nz) inverse diagonal, which cg_solve's fused iteration reads."""
     inv = (1.0 / stencil_diag(from_soa(A_soa))).permute(3, 0, 1, 2).contiguous()
 
     def apply(r):
         return r * inv
 
+    apply.inv = inv
     return apply
 
 

@@ -12,6 +12,7 @@ float64 to 1e-9: its micro CG iterates carry the roundoff of another
 summation order, stopped at the 1e-8 CG tolerance."""
 
 import math
+from functools import partial
 
 import numpy as np
 import pytest
@@ -25,12 +26,16 @@ from macroc_tpu_torch.fem.kernels import assemble_stencil_soa
 from macroc_tpu_torch.grid import make_grid
 from macroc_tpu_torch.ops import assembly as asm
 from macroc_tpu_torch.constitutive.microfe import MicroFEEngine
+from macroc_tpu_torch.ops import cg_fused
 from macroc_tpu_torch.ops.stencil_spmv import (
     stencil_matvec,
+    stencil_matvec_dot,
+    stencil_matvec_dot_plain,
     stencil_matvec_soa,
     stencil_matvec_v1,
 )
 from macroc_tpu_torch.problem import MacroProblem
+from macroc_tpu_torch.solve import cg as cg_mod
 from macroc_tpu_torch.solve.gmres import gmres_solve
 from macroc_tpu_torch.solve.precond import jacobi_precond_soa
 
@@ -171,6 +176,106 @@ def test_k1v1_kernel_matches_plain(cuda, shape, tile, dtype, tol):
     assert stencil_matvec_v1.launches == before + 1
 
 
+def _cg_state(like, active=True):
+    return cg_fused.CGState(like.device, rz=2.0, rnorm0=1.0, tol=1e-30, div=1e30,
+                            abstol=1e-50, maxits=40, reason0=0 if active else 2,
+                            pnorm=True, nodes=like[0].numel(), record_trace=True)
+
+
+def _cg_iteration(steps, A, x, p, r, inv, active=True):
+    """One iteration of the three fused steps on copies; returns the
+    vectors and the state's scalars, flags and trace (NaN as 0)."""
+    x, p, r = x.clone(), p.clone(), r.clone()
+    q = torch.zeros_like(p)
+    st = _cg_state(p, active)
+    dot, xr, up = steps
+    dot(A, p, q, st)
+    xr(x, p, r, q, inv, st)
+    up(p, r, inv, st)
+    return dict(q=q, x=x, r=r, p=p, sc=st.sc, st=st.st, trace=st.trace.nan_to_num())
+
+
+_KERNELS = (stencil_matvec_dot, cg_fused.cg_update_xr, cg_fused.cg_update_p)
+_PLAIN = (stencil_matvec_dot_plain, cg_fused.cg_update_xr_plain, cg_fused.cg_update_p_plain)
+
+
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("shape", [(33, 17, 45), (64, 64, 64), (5, 3, 5)])
+def test_cg_fused_kernels_match_plain(cuda, shape, dtype, tol):
+    """K1's p.q form and the two update kernels against their plain
+    versions; two launches bitwise equal; no-ops when the flag is 0."""
+    rng = np.random.default_rng(8)
+    # a dominant positive diagonal keeps p.Ap, and so alpha, away from
+    # cancellation, as on a solve's SPD operator
+    A = 0.1 * rng.normal(size=(27, 3, 3) + shape)
+    A[13, [0, 1, 2], [0, 1, 2]] += 3.0
+    A = torch.as_tensor(A, dtype=dtype, device=cuda)
+    x, p, r = (torch.as_tensor(rng.normal(size=(3,) + shape), dtype=dtype, device=cuda)
+               for _ in range(3))
+    inv = torch.as_tensor(rng.random(size=(3,) + shape) + 0.5, dtype=dtype, device=cuda)
+    before = (stencil_matvec.launches, stencil_matvec_dot.launches,
+              cg_fused.cg_update_xr.launches, cg_fused.cg_update_p.launches)
+    k = _cg_iteration(_KERNELS, A, x, p, r, inv)
+    assert (stencil_matvec.launches, stencil_matvec_dot.launches,
+            cg_fused.cg_update_xr.launches, cg_fused.cg_update_p.launches) == tuple(
+                n + 1 for n in before)
+    k2 = _cg_iteration(_KERNELS, A, x, p, r, inv)
+    assert all(torch.equal(k[f], k2[f]) for f in k)
+    pl = _cg_iteration(_PLAIN, A, x, p, r, inv)
+    for f in ("q", "x", "r", "p"):
+        assert _rel(k[f], pl[f]) < tol, f
+    assert torch.equal(k["st"], pl["st"]) and int(k["st"][cg_fused.ST_ITS]) == 1
+    # alpha through p.q (cancelling terms: against the sum of |p_i q_i|),
+    # then rz, beta, rnorm and the trace (sums of positive terms)
+    scale = float((p * pl["q"]).abs().sum(dtype=torch.float64))
+    assert abs(float(k["sc"][1] - pl["sc"][1])) < tol * scale
+    for i in (0, 2, 3, 4):
+        assert abs(float(k["sc"][i] / pl["sc"][i]) - 1.0) < tol, i
+    assert _rel(k["trace"], pl["trace"]) < tol
+    idle = _cg_iteration(_KERNELS, A, x, p, r, inv, active=False)
+    assert torch.equal(idle["x"], x) and torch.equal(idle["r"], r)
+    assert torch.equal(idle["p"], p) and not idle["q"].any()
+
+
+def test_cg_fused_solve_on_gpu_matches_cpu(cuda, monkeypatch):
+    """Jacobi PCG on a BC-eliminated 17x5x17 circle stencil at float64 to
+    rtol 1e-10: the fused loop's kernels on the card against its plain
+    versions on the CPU, with check intervals 1 and 16 on the card
+    (bitwise equal): counts within 1, the same reason, x to 1e-10.  At
+    rtol 1e-5 this thin plate's x moves by 4e-6 under a 1e-16 relative
+    perturbation of A (the two devices assemble it in other orders); at
+    1e-10 by 3e-12."""
+    cfg = MacroConfig(nx=17, ny=5, nz=17, lx=10.0, ly=1.0, lz=10.0, bc_type=1,
+                      rad=2.0, dtype="float64")
+    grid = make_grid(cfg, 1)
+    shape = (grid.nx, grid.ny, grid.nz)
+    rng = np.random.default_rng(10)
+    C = elastic_matrix(MaterialParams())
+    ct = C * (1.0 + 0.5 * rng.random(tuple(n - 1 for n in shape) + (8, 1, 1)))
+    b = rng.normal(size=(3,) + shape)
+    out = {}
+    for dev, k in (("cpu", 16), (cuda, 1), (cuda, 16)):
+        bc = tbc.build_bc(grid, cfg, torch.float64, dev)
+        B = torch.as_tensor(b_matrix(grid.spacing), dtype=torch.float64, device=dev)
+        A = tbc.apply_bc_stencil_soa(
+            assemble_stencil_soa(torch.as_tensor(ct, device=dev), B, grid.wg, shape), bc
+        )
+        rhs = torch.as_tensor(b, device=dev).masked_fill(bc.mask.permute(3, 0, 1, 2), 0.0)
+        before = stencil_matvec_dot.launches
+        monkeypatch.setattr(cg_mod, "CHECK_EVERY", k)
+        r = cg_mod.cg_solve(partial(stencil_matvec, A), rhs, jacobi_precond_soa(A),
+                            rtol=1e-10, record_trace=True)
+        out[(str(dev), k)] = r
+        if dev != "cpu":
+            # every queued iteration launches, the no-ops after convergence too
+            assert r.its <= stencil_matvec_dot.launches - before < r.its + k
+    c, g1, g16 = out[("cpu", 16)], out[(str(cuda), 1)], out[(str(cuda), 16)]
+    assert abs(g1.its - c.its) <= 1 and g1.reason == c.reason > 0 and c.its > 300
+    assert _rel(g1.x.cpu(), c.x) < 1e-10
+    assert (g16.its, g16.reason, g16.trace) == (g1.its, g1.reason, g1.trace)
+    assert torch.equal(g16.x, g1.x)
+
+
 def test_microfe_homogenize_on_gpu_matches_cpu(cuda):
     """A two-phase micro_n=4 engine, 24 GPs with 3 driven past yield, fast
     path on: the batched micro solves on the card against the CPU."""
@@ -216,6 +321,16 @@ def test_wrappers_reject_bad_input(cuda):
         stencil_matvec_v1(A, torch.zeros((3, 4, 4, 4), device=cuda), tile=(8, 8, 32))
     with pytest.raises(TypeError):
         stencil_matvec_v1(A, torch.zeros((3, 4, 4, 4), device=cuda).double())
+    v = torch.zeros((3, 4, 4, 4), device=cuda)
+    st = _cg_state(v)
+    with pytest.raises(TypeError):
+        stencil_matvec_dot(A.half(), v.half(), v.half(), st)
+    with pytest.raises(ValueError):
+        stencil_matvec_dot(A, v, torch.zeros((3, 4, 4, 5), device=cuda), st)
+    with pytest.raises(ValueError):
+        cg_fused.cg_update_xr(v, v, v, v.double(), None, st)
+    with pytest.raises(ValueError):
+        cg_fused.cg_update_p(v, v, None, _cg_state(v.cpu()))
 
 
 def test_newton_step_on_gpu_matches_cpu(cuda):
