@@ -538,7 +538,7 @@ CG_SOLVE_ITS = 1
 def cg_state(like, rz, maxits=1 << 30, tol=-1.0):
     """A CGState on ``like``'s device after a made-up iteration 0; the
     defaults never stop (timing)."""
-    from macroc_tpu_torch.ops.cg_fused import CGState
+    from macroc_tpu_torch.solve.cg_state import CGState
 
     return CGState(like.device, rz=rz, rnorm0=1.0, tol=tol, div=math.inf, abstol=1e-50,
                    maxits=maxits, reason0=0, pnorm=True, nodes=like[0].numel(),
@@ -563,8 +563,6 @@ def phase_cg(dev, path_shapes):
     """The fused PCG iteration's three kernels against their plain
     versions, then a 128^3 Jacobi solve through the three loops, then the
     CLI's Jacobi line (module docstring, phase 4b)."""
-    from functools import partial
-
     from macroc_tpu_torch import MacroConfig, MaterialParams
     from macroc_tpu_torch import bc as tbc
     from macroc_tpu_torch.constitutive.elastic import elastic_matrix
@@ -578,6 +576,7 @@ def phase_cg(dev, path_shapes):
         cg_update_xr_plain,
     )
     from macroc_tpu_torch.ops.stencil_spmv import (
+        StencilOperator,
         stencil_matvec,
         stencil_matvec_dot,
         stencil_matvec_dot_plain,
@@ -693,8 +692,8 @@ def phase_cg(dev, path_shapes):
         del ctan
         b = b64.to(dtype).masked_fill(bc.mask.permute(3, 0, 1, 2), 0.0)
         M = jacobi_precond_soa(A)
-        loops = {"fused": (partial(stencil_matvec, A), M),
-                 "plain": (partial(stencil_matvec_soa, A), M),
+        loops = {"fused": (StencilOperator(A), M),
+                 "plain": (StencilOperator(A, stencil_matvec_soa), M),
                  "unfused": (lambda v: stencil_matvec(A, v), lambda v: M(v))}
         res = {}
         for name, (mv, pc) in loops.items():

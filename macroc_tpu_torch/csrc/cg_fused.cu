@@ -35,7 +35,7 @@ namespace {
 
 using namespace macroc_cg;
 
-constexpr int UPDATE_BLOCKS = 1024;  // ops/cg_fused.py::UPDATE_BLOCKS
+constexpr int UPDATE_BLOCKS = 1024;  // solve/cg_state.py::UPDATE_BLOCKS
 
 // 16-byte vectors of T: every thread moves V values per load
 template <typename T> struct Vec;

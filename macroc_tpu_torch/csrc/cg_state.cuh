@@ -2,7 +2,7 @@
 // iteration's kernels share (K1's p.q form in stencil_spmv.cu, the two
 // update kernels in cg_fused.cu).
 //
-// The layout mirrors macroc_tpu_torch/ops/cg_fused.py (SC_*, ST_*):
+// The layout mirrors macroc_tpu_torch/solve/cg_state.py (SC_*, ST_*):
 //   sc (double[SC_N]): rz, p.q, alpha, beta, rnorm, tol, div, abstol
 //   st (int[ST_N]):    its, reason, active, maxits, preconditioned norm,
 //                      the last-block counter
@@ -23,7 +23,7 @@ namespace macroc_cg {
 enum { SC_RZ, SC_PQ, SC_ALPHA, SC_BETA, SC_RNORM, SC_TOL, SC_DIV, SC_ABSTOL, SC_N };
 enum { ST_ITS, ST_REASON, ST_ACTIVE, ST_MAXITS, ST_PNORM, ST_COUNT, ST_N };
 
-// PETSc KSPConvergedReason values (solve/cg.py)
+// PETSc KSPConvergedReason values (solve/cg_state.py)
 constexpr int CONVERGED_RTOL = 2;
 constexpr int CONVERGED_ATOL = 3;
 constexpr int DIVERGED_DTOL = -4;
@@ -69,7 +69,7 @@ __device__ __forceinline__ double sum_partials(const double* partials, int count
 }
 
 // the end of an iteration (thread 0 of the update kernel's last block):
-// solve/cg.py::_reason's rules, the -ksp_monitor trace, the flag
+// solve/cg_state.py::reason's rules, the -ksp_monitor trace, the flag
 __device__ __forceinline__ void finish_iteration(double rz_new, double nn, double* sc,
                                                  int* st, double* trace) {
   const double rnorm = sqrt(nn);

@@ -1,7 +1,7 @@
-"""The fused PCG iteration's device scalars and its two update kernels
-(``csrc/cg_fused.cu``), with their plain versions.  Port-only: the JAX
-package's CG (``macroc_tpu/solve/cg.py``) is one ``lax.while_loop`` that XLA
-fuses; ``solve/cg.py::cg_solve`` runs an iteration as K1's p·q form
+"""The fused PCG iteration's two update kernels (``csrc/cg_fused.cu``), with
+their plain versions.  Port-only: the JAX package's CG
+(``macroc_tpu/solve/cg.py``) is one ``lax.while_loop`` that XLA fuses;
+``solve/cg.py::cg_solve`` runs an iteration as K1's p·q form
 (``ops/stencil_spmv.py::stencil_matvec_dot``) and the two kernels here:
 
   ``cg_update_xr``  x += α p; r −= α q; z = inv_diag r; r·z and the monitored
@@ -11,98 +11,16 @@ fuses; ``solve/cg.py::cg_solve`` runs an iteration as K1's p·q form
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version (``*_plain``) for CPU tensors; nothing falls back from one to the
-other.  Every one of them is a no-op while the solve's active flag is 0.
-
-:class:`CGState` holds the device scalars: ``sc`` (float64) and ``st``
-(int32), indexed by the ``SC_*``/``ST_*`` constants, which mirror
-``csrc/cg_state.cuh``; the ``-ksp_monitor`` trace (float64, maxits + 1);
-and the per-block partial sums the kernels reduce in a fixed order.
+other.  Every one of them is a no-op while the solve's active flag is 0:
+the plain versions select on the flag, so they read nothing back to the
+host.  ``state`` is the solve's ``solve/cg_state.py::CGState``.
 """
 
 from __future__ import annotations
 
-import math
-
 import torch
 
-SC_RZ, SC_PQ, SC_ALPHA, SC_BETA, SC_RNORM, SC_TOL, SC_DIV, SC_ABSTOL = range(8)
-ST_ITS, ST_REASON, ST_ACTIVE, ST_MAXITS, ST_PNORM, ST_COUNT = range(6)
-THREADS = 256          # csrc/cg_state.cuh::THREADS
-UPDATE_BLOCKS = 1024   # csrc/cg_fused.cu::UPDATE_BLOCKS
-
-# PETSc KSPConvergedReason values (solve/cg.py)
-_RTOL, _ATOL, _DTOL = 2, 3, -4
-
-
-class CGState:
-    """The device scalars of one PCG solve on ``device``, after its
-    iteration 0: rz = r·z, rnorm0, tol, div, abstol, maxits, reason0, the
-    norm type; ``nodes`` sizes the partial sums of the kernels (none on
-    the CPU); ``record_trace`` keeps rnorm per iteration."""
-
-    def __init__(self, device, *, rz, rnorm0: float, tol: float, div: float,
-                 abstol: float, maxits: int, reason0: int, pnorm: bool,
-                 nodes: int = 0, record_trace: bool = False):
-        dev = torch.device(device)
-        self.sc = torch.tensor([0.0, 0.0, 0.0, 0.0, rnorm0, tol, div, abstol],
-                               dtype=torch.float64, device=dev)
-        self.sc[SC_RZ] = rz
-        active = int(reason0 == 0 and maxits > 0)
-        self.st = torch.tensor([0, reason0, active, maxits, int(pnorm), 0],
-                               dtype=torch.int32, device=dev)
-        self.trace = None
-        if record_trace:
-            self.trace = torch.full((maxits + 1,), math.nan, dtype=torch.float64,
-                                    device=dev)
-            self.trace[0] = rnorm0
-        self.partials = None
-        if dev.type == "cuda":
-            k1_blocks = -(-nodes // THREADS)
-            self.partials = torch.empty(max(k1_blocks, 2 * UPDATE_BLOCKS),
-                                        dtype=torch.float64, device=dev)
-
-    def active(self) -> bool:
-        """Whether the solve is still running (a host read)."""
-        return bool(self.st[ST_ACTIVE])
-
-    def result(self):
-        """(its, rnorm, reason, trace list or None): one host read."""
-        st, sc = self.st.tolist(), self.sc.tolist()
-        its = st[ST_ITS]
-        trace = None if self.trace is None else self.trace[: its + 1].tolist()
-        return its, sc[SC_RNORM], st[ST_REASON], trace
-
-
-def set_alpha(state: CGState, pq: torch.Tensor) -> None:
-    """p·q and α = rz / p·q into the state (the end of K1's p·q form)."""
-    state.sc[SC_PQ] = pq
-    state.sc[SC_ALPHA] = state.sc[SC_RZ] / state.sc[SC_PQ]
-
-
-def reason_t(rnorm, tol, abstol, div) -> torch.Tensor:
-    """``solve/cg.py::_reason`` on tensors (elementwise): CONVERGED_RTOL or
-    _ATOL when rnorm <= tol, DIVERGED_DTOL when rnorm >= div, else 0."""
-    conv = torch.where(rnorm <= abstol, _ATOL, _RTOL)
-    return torch.where(rnorm <= tol, conv, torch.where(rnorm >= div, _DTOL, 0)).to(torch.int32)
-
-
-def finish_iteration(state: CGState, rz_new: torch.Tensor, nn: torch.Tensor) -> None:
-    """The end of an iteration in torch operations on the state's device
-    (``cg_state.cuh::finish_iteration``): β = rz_new / rz, rnorm = √nn,
-    its + 1, the reason by ``solve/cg.py::_reason``'s rules, the active
-    flag and the trace.  No host read."""
-    sc, st = state.sc, state.st
-    rnorm = torch.sqrt(nn.to(torch.float64))
-    its = st[ST_ITS] + 1
-    reason = reason_t(rnorm, sc[SC_TOL], sc[SC_ABSTOL], sc[SC_DIV])
-    sc[SC_BETA] = rz_new.to(torch.float64) / sc[SC_RZ]
-    sc[SC_RZ] = rz_new
-    sc[SC_RNORM] = rnorm
-    st[ST_ITS] = its
-    st[ST_REASON] = reason
-    st[ST_ACTIVE] = (reason == 0) & (its < st[ST_MAXITS])
-    if state.trace is not None:
-        state.trace.index_copy_(0, its.long().reshape(1), rnorm.reshape(1))
+from macroc_tpu_torch.solve.cg_state import SC_ALPHA, SC_BETA
 
 
 def dot64(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -115,26 +33,24 @@ def _z(r, inv):
     return r if inv is None else inv * r
 
 
-def cg_update_xr_plain(x, p, r, q, inv, state: CGState) -> None:
-    """Kernel (a)'s plain version, in place on x and r."""
-    if not state.active():
-        return
+def cg_update_xr_plain(x, p, r, q, inv, state) -> None:
+    """Kernel (a)'s plain version, in place on x and r, then the end of the
+    iteration into ``state``."""
+    on = state.running()
     alpha = state.sc[SC_ALPHA].to(x.dtype)
-    x += alpha * p
-    r -= alpha * q
+    x.copy_(torch.where(on, x + alpha * p, x))
+    r.copy_(torch.where(on, r - alpha * q, r))
     z = _z(r, inv)
-    pnorm = bool(state.st[ST_PNORM])
-    finish_iteration(state, dot64(r, z), dot64(z, z) if pnorm else dot64(r, r))
+    state.finish_iteration(dot64(r, z), dot64(z, z) if state.pnorm else dot64(r, r))
 
 
-def cg_update_p_plain(p, r, inv, state: CGState) -> None:
+def cg_update_p_plain(p, r, inv, state) -> None:
     """Kernel (b)'s plain version, in place on p."""
-    if not state.active():
-        return
-    p.copy_(_z(r, inv) + state.sc[SC_BETA].to(p.dtype) * p)
+    beta = state.sc[SC_BETA].to(p.dtype)
+    p.copy_(torch.where(state.running(), _z(r, inv) + beta * p, p))
 
 
-def _check(what, vectors, state: CGState):
+def _check(what, vectors, state):
     """The kernels take contiguous f32 or f64 vectors of one shape, dtype
     and device (inv may be None), and a state on that device."""
     ref = vectors[0]
@@ -159,7 +75,7 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def cg_update_xr(x, p, r, q, inv, state: CGState) -> None:
+def cg_update_xr(x, p, r, q, inv, state) -> None:
     """Kernel (a) (``cg_update_xr_kernel``) on CUDA tensors, its plain
     version on CPU tensors; in place on x and r and the state.  Counts
     launches in ``cg_update_xr.launches``."""
@@ -180,7 +96,7 @@ def cg_update_xr(x, p, r, q, inv, state: CGState) -> None:
     cg_update_xr.launches += 1
 
 
-def cg_update_p(p, r, inv, state: CGState) -> None:
+def cg_update_p(p, r, inv, state) -> None:
     """Kernel (b) (``cg_update_p_kernel``) on CUDA tensors, its plain
     version on CPU tensors; in place on p.  Counts launches in
     ``cg_update_p.launches``."""

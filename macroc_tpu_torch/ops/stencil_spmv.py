@@ -8,8 +8,8 @@ the SpMV metric: 243 stored coefficients per node.
 ``stencil_matvec_v1`` K1v1 (``csrc/stencil_spmv_v1.cu``, the shared-memory
 tile form) for CUDA tensors; both run ``stencil_matvec_soa`` for CPU
 tensors.  ``stencil_matvec_dot`` launches K1's p·q form, the operator of
-``solve/cg.py``'s fused PCG iteration.  Nothing falls back from one to the
-other.
+``solve/cg.py``'s fused PCG iteration, which runs on a
+:class:`StencilOperator`.  Nothing falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from macroc_tpu_torch.fem.kernels import STENCIL_OFFSETS
-from macroc_tpu_torch.ops.cg_fused import dot64, set_alpha
+from macroc_tpu_torch.ops.cg_fused import dot64
 
 
 def to_soa(A27: torch.Tensor) -> torch.Tensor:
@@ -120,15 +120,31 @@ _ENTRY = {
 }
 
 
+class StencilOperator:
+    """y = A x on the stencil ``A_soa`` through ``apply``: K1
+    (:func:`stencil_matvec`, the default) or its plain version
+    (:func:`stencil_matvec_soa`).  ``solve/cg.py::cg_solve`` runs its fused
+    PCG iteration on this type: K1's p·q form with ``apply`` K1, the plain
+    versions of the iteration's kernels with ``apply`` the plain one."""
+
+    def __init__(self, A_soa: torch.Tensor, apply=stencil_matvec):
+        if apply not in (stencil_matvec, stencil_matvec_soa):
+            raise ValueError(f"StencilOperator applies stencil_matvec or "
+                             f"stencil_matvec_soa, not {apply!r}")
+        self.A_soa = A_soa
+        self.apply = apply
+
+    def __call__(self, x_soa: torch.Tensor) -> torch.Tensor:
+        return self.apply(self.A_soa, x_soa)
+
+
 def stencil_matvec_dot_plain(A_soa, p, q, state) -> None:
     """K1's p·q form, plain: q = A p in place, then p·q (products in p's
     type, summed in float64) and α = rz / p·q into the solve's device
-    scalars (``ops/cg_fused.py::CGState``); a no-op once the solve's active
-    flag is 0."""
-    if not state.active():
-        return
-    q.copy_(stencil_matvec_soa(A_soa, p))
-    set_alpha(state, dot64(p, q))
+    scalars (``state.set_alpha``); selected on the solve's active flag, so
+    a no-op once it is 0."""
+    q.copy_(torch.where(state.running(), stencil_matvec_soa(A_soa, p), q))
+    state.set_alpha(dot64(p, q))
 
 
 def stencil_matvec_dot(A_soa, p, q, state) -> None:

@@ -64,6 +64,7 @@ from macroc_tpu_torch.ops.assembly import (
     b_dsh,
 )
 from macroc_tpu_torch.ops.stencil_spmv import (
+    StencilOperator,
     stencil_matvec,
     stencil_matvec_soa,
     x_from_soa,
@@ -350,9 +351,8 @@ class MacroProblem:
                                                partial(assemble, dsh=self.dsh))
             A_soa = bc_mod.apply_bc_stencil_soa(A_soa, self.bc)
         if self.mesh is None:
-            # a partial of the operator function: cg_solve reads A_soa from it
-            # and runs its fused iteration (solve/cg.py)
-            matvec = partial(_OPERATORS[plan["operator"]], A_soa)
+            # cg_solve runs its fused iteration on a StencilOperator
+            matvec = StencilOperator(A_soa, _OPERATORS[plan["operator"]])
         else:
             matvec = partial(stencil_matvec_local, A_soa, mesh=self.mesh)
         with self._phase("precond_setup"):

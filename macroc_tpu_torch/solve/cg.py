@@ -5,35 +5,34 @@ of ``macroc_tpu/solve/cg.py``).
   - the *preconditioned* residual norm ||M^{-1} r||_2 is monitored (PETSc
     KSPCG's default norm type);
   - KSPConvergedDefault: converged when rnorm <= max(rtol * rnorm_0,
-    abstol); diverged when rnorm >= dtol * rnorm_0 or its >= maxits.
+    abstol); diverged when rnorm >= dtol * rnorm_0 or its >= maxits
+    (``solve/cg_state.py``).
 
-The convergence test runs on the device.  The scalars of the loop (rz,
-alpha, beta, rnorm, its, the reason, an ``active`` flag and the
-``-ksp_monitor`` trace) live in a :class:`~macroc_tpu_torch.ops.cg_fused.CGState`;
-the host reads ``rnorm_0`` once before the loop, the flag every
-``CHECK_EVERY`` iterations, and the result at the end.  Every step of an
-iteration is a no-op while the flag is 0, so the iterations queued after
-convergence change nothing: its, x, rnorm, reason and the trace are those
-of a test after every iteration.
+Two routes, each the same on the CPU and the card:
 
-Two routes share the loop:
-
-  - fused: the operator is K1's wrapper bound to its stencil
-    (``partial(stencil_matvec, A_soa)``, as ``problem.py`` passes it) and
-    the preconditioner is Jacobi (``jacobi_precond_soa``, which carries its
-    inverse diagonal) or none.  An iteration is three calls, each a kernel
-    on CUDA tensors and its plain version on CPU tensors: K1's p·q form
-    (``ops/stencil_spmv.py::stencil_matvec_dot``), then
-    ``ops/cg_fused.py::cg_update_xr`` and ``cg_update_p``.  Bound to K1's
-    plain version (``partial(stencil_matvec_soa, A_soa)``), the route runs
-    the three plain versions on any device.  Inner products are products
-    in the vectors' type summed in float64.
+  - fused: the operator is a
+    :class:`~macroc_tpu_torch.ops.stencil_spmv.StencilOperator` (as
+    ``problem.py`` passes it) and the preconditioner a
+    :class:`~macroc_tpu_torch.solve.precond.DiagonalPrecond` (Jacobi or
+    identity) or none, in one process.  An iteration is three calls, each a
+    kernel on CUDA tensors and its plain version on CPU tensors: K1's p·q
+    form (``ops/stencil_spmv.py::stencil_matvec_dot``), then
+    ``ops/cg_fused.py::cg_update_xr`` and ``cg_update_p``.  An operator
+    that applies K1's plain version runs the three plain versions on any
+    device.  Inner products are products in the vectors' type summed in
+    float64.  The convergence test runs on the device: the loop's scalars
+    (rz, alpha, beta, rnorm, its, the reason, an ``active`` flag and the
+    ``-ksp_monitor`` trace) live in a
+    :class:`~macroc_tpu_torch.solve.cg_state.CGState`, and the host reads
+    the flag every ``CHECK_EVERY`` iterations and the result at the end.
+    Every call of an iteration is a no-op while the flag is 0, so the
+    iterations queued after convergence change nothing: its, x, rnorm,
+    reason and the trace are those of a test after every iteration.
   - any other operator or preconditioner (MG, block-Jacobi, matrix-free,
     a rank's halo matvec, a lambda): its own calls, the dots (summed in
-    the vectors' type) and updates in torch operations and the scalars in
-    the same state, which rounds alpha and beta to the vectors' type as
-    the divisions did.  Its calls do their work even while the flag is 0,
-    so this route reads the flag every iteration.
+    the vectors' type) and updates in torch operations, and the test on
+    the host after every iteration.  Its calls cannot be made no-ops, so
+    its scalars stay host-side.
 
 ``allreduce`` makes the solve distributed (always the second route): each
 rank holds its block of the vectors, and every inner product is a local
@@ -51,47 +50,51 @@ iterate frozen while the others go on.
 from __future__ import annotations
 
 import math
-from functools import partial
 from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from macroc_tpu_torch.ops.cg_fused import (
-    SC_ALPHA,
-    SC_BETA,
-    CGState,
-    dot64,
     cg_update_p,
     cg_update_p_plain,
     cg_update_xr,
     cg_update_xr_plain,
-    finish_iteration,
-    reason_t as _reason_t,
-    set_alpha,
+    dot64,
 )
 from macroc_tpu_torch.ops.stencil_spmv import (
+    StencilOperator,
     stencil_matvec,
     stencil_matvec_dot,
     stencil_matvec_dot_plain,
     stencil_matvec_soa,
 )
-
-# PETSc KSPConvergedReason values (for log parity)
-KSP_CONVERGED_RTOL = 2
-KSP_CONVERGED_ATOL = 3
-KSP_DIVERGED_ITS = -3
-KSP_DIVERGED_DTOL = -4
+from macroc_tpu_torch.solve.cg_state import (
+    KSP_CONVERGED_ATOL,
+    KSP_CONVERGED_RTOL,
+    KSP_DIVERGED_DTOL,
+    KSP_DIVERGED_ITS,
+    CGState,
+    reason as _reason,
+    reason_t as _reason_t,
+)
+from macroc_tpu_torch.solve.precond import DiagonalPrecond
 
 #: KSPConvergedReason value -> PETSc enum name (for -ksp_converged_reason)
 KSP_REASON_NAMES = {
-    2: "CONVERGED_RTOL",
-    3: "CONVERGED_ATOL",
-    -3: "DIVERGED_ITS",
-    -4: "DIVERGED_DTOL",
+    KSP_CONVERGED_RTOL: "CONVERGED_RTOL",
+    KSP_CONVERGED_ATOL: "CONVERGED_ATOL",
+    KSP_DIVERGED_ITS: "DIVERGED_ITS",
+    KSP_DIVERGED_DTOL: "DIVERGED_DTOL",
 }
 
 #: iterations between two host reads of the fused route's active flag
 CHECK_EVERY = 16
+
+#: the fused route's three calls, by the operator's ``apply``
+_FUSED_STEPS = {
+    stencil_matvec: (stencil_matvec_dot, cg_update_xr, cg_update_p),
+    stencil_matvec_soa: (stencil_matvec_dot_plain, cg_update_xr_plain, cg_update_p_plain),
+}
 
 
 class KSPResult(NamedTuple):
@@ -112,37 +115,20 @@ def _identity(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def _reason(rnorm: float, tol: float, abstol: float, div: float) -> int:
-    if rnorm <= tol:
-        return KSP_CONVERGED_ATOL if rnorm <= abstol else KSP_CONVERGED_RTOL
-    return KSP_DIVERGED_DTOL if rnorm >= div else 0
-
-
 def _fused_operands(matvec, b, precond, allreduce):
-    """(A_soa, inv, steps) when the fused route can run this solve (module
-    docstring), else None; ``steps`` are its three calls."""
-    if allreduce is not None or not isinstance(matvec, partial):
+    """(A_soa, inv, steps) when the fused route runs this solve (module
+    docstring), else None; ``steps`` are its three calls.  The kernels take
+    A, b and inv of one dtype, f32 or f64."""
+    if (allreduce is not None or not isinstance(matvec, StencilOperator)
+            or not (precond is None or isinstance(precond, DiagonalPrecond))):
         return None
-    if matvec.func not in _FUSED_STEPS or len(matvec.args) != 1 or matvec.keywords:
-        return None
-    A_soa = matvec.args[0]
-    if precond is None:
-        inv = None
-    elif hasattr(precond, "inv"):
-        inv = precond.inv
-    else:
-        return None
+    A_soa = matvec.A_soa
+    inv = None if precond is None else precond.inv
     if (b.dtype not in (torch.float32, torch.float64) or A_soa.dtype != b.dtype
             or b.shape != (3,) + tuple(A_soa.shape[-3:])
             or (inv is not None and (inv.shape != b.shape or inv.dtype != b.dtype))):
         return None
-    return A_soa, inv, _FUSED_STEPS[matvec.func]
-
-
-_FUSED_STEPS = {
-    stencil_matvec: (stencil_matvec_dot, cg_update_xr, cg_update_p),
-    stencil_matvec_soa: (stencil_matvec_dot_plain, cg_update_xr_plain, cg_update_p_plain),
-}
+    return A_soa, inv, _FUSED_STEPS[matvec.apply]
 
 
 def cg_solve(
@@ -175,48 +161,49 @@ def cg_solve(
     r = b.clone()  # x0 = 0
     z = precond(r)
     rz, nn = dots(r, z)
-    rnorm0 = math.sqrt(float(nn))  # the one host read before the loop
-    tol = max(rtol * rnorm0, abstol)
-    # converged already at iteration 0 (e.g. b == 0)?
-    state = CGState(
-        b.device, rz=rz, rnorm0=rnorm0, tol=tol, div=dtol * rnorm0, abstol=abstol,
-        maxits=maxits, reason0=_reason(rnorm0, tol, abstol, math.inf),
-        pnorm=use_pnorm, nodes=b[0].numel(), record_trace=record_trace,
-    )
+    rnorm0 = math.sqrt(float(nn))
     x = torch.zeros_like(b)
-    if fused is not None:
-        A_soa, inv, (spmv_dot, update_xr, update_p) = fused
-        # the kernels update r and p in place: p must not alias r
-        p = z.clone() if z is r else z
-        q = torch.empty_like(b)
-        check_every = CHECK_EVERY
 
-        def iteration():
-            spmv_dot(A_soa, p, q, state)
-            update_xr(x, p, r, q, inv, state)
-            update_p(p, r, inv, state)
-    else:
+    tol = max(rtol * rnorm0, abstol)
+    div = dtol * rnorm0
+    # converged already at iteration 0 (e.g. b == 0)?
+    reason = _reason(rnorm0, tol, abstol, math.inf)
+    if fused is None:
         p = z
-        check_every = 1
-
-        def iteration():
-            nonlocal r, p
+        rnorm = rnorm0
+        trace = [rnorm0] if record_trace else None
+        its = 0
+        while reason == 0 and its < maxits:
             q = matvec(p)
-            set_alpha(state, reduce(_dot(p, q)))
-            alpha = state.sc[SC_ALPHA].to(b.dtype)
-            x.add_(alpha * p)
+            alpha = rz / reduce(_dot(p, q))
+            x += alpha * p
             # not in place: the identity preconditioner returns r itself, so
             # z and p may alias it
             r = r - alpha * q
             z = precond(r)
-            finish_iteration(state, *dots(r, z))
-            p = z + state.sc[SC_BETA].to(b.dtype) * p
-
-    queued = 0
-    while queued < maxits and (queued % check_every or state.active()):
-        iteration()
-        queued += 1
-    its, rnorm, reason, trace = state.result()
+            rz_new, nn = dots(r, z)
+            p = z + (rz_new / rz) * p
+            rz = rz_new
+            rnorm = math.sqrt(float(nn))
+            its += 1
+            reason = _reason(rnorm, tol, abstol, div)
+            if trace is not None:
+                trace.append(rnorm)
+    else:
+        A_soa, inv, (spmv_dot, update_xr, update_p) = fused
+        state = CGState(b.device, rz=rz, rnorm0=rnorm0, tol=tol, div=div, abstol=abstol,
+                        maxits=maxits, reason0=reason, pnorm=use_pnorm,
+                        nodes=b[0].numel(), record_trace=record_trace)
+        # the kernels update r and p in place: p must not alias r
+        p = z.clone() if z is r else z
+        q = torch.empty_like(b)
+        queued = 0
+        while queued < maxits and (queued % CHECK_EVERY or state.active()):
+            spmv_dot(A_soa, p, q, state)
+            update_xr(x, p, r, q, inv, state)
+            update_p(p, r, inv, state)
+            queued += 1
+        its, rnorm, reason, trace = state.result()
     if reason == 0 and its >= maxits:
         reason = KSP_DIVERGED_ITS
     return KSPResult(x=x, its=its, rnorm=rnorm, reason=reason, trace=trace)

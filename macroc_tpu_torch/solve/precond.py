@@ -13,13 +13,20 @@ from macroc_tpu_torch.ops.stencil import stencil_diag, stencil_diag_blocks
 from macroc_tpu_torch.ops.stencil_spmv import from_soa
 
 
-def identity_precond():
-    """z = r; ``apply.inv`` is None (cg_solve's fused iteration takes z = r)."""
-    def apply(r):
-        return r
+class DiagonalPrecond:
+    """z = inv * r, or z = r when ``inv`` is None; ``solve/cg.py::cg_solve``
+    runs its fused PCG iteration with this type (and reads ``inv``)."""
 
-    apply.inv = None
-    return apply
+    def __init__(self, inv: torch.Tensor | None):
+        self.inv = inv
+
+    def __call__(self, r: torch.Tensor) -> torch.Tensor:
+        return r if self.inv is None else r * self.inv
+
+
+def identity_precond():
+    """z = r (a :class:`DiagonalPrecond` without a diagonal)."""
+    return DiagonalPrecond(None)
 
 
 def jacobi_precond_flat(Af: torch.Tensor):
@@ -35,15 +42,10 @@ def jacobi_precond_flat(Af: torch.Tensor):
 
 
 def jacobi_precond_soa(A_soa: torch.Tensor):
-    """z = r / diag(A), A_soa (27,3,3,nx,ny,nz).  ``apply.inv`` is the
-    (3,nx,ny,nz) inverse diagonal, which cg_solve's fused iteration reads."""
+    """z = r / diag(A), A_soa (27,3,3,nx,ny,nz): a :class:`DiagonalPrecond`
+    on the (3,nx,ny,nz) inverse diagonal."""
     inv = (1.0 / stencil_diag(from_soa(A_soa))).permute(3, 0, 1, 2).contiguous()
-
-    def apply(r):
-        return r * inv
-
-    apply.inv = inv
-    return apply
+    return DiagonalPrecond(inv)
 
 
 def block_jacobi_precond_soa(A_soa: torch.Tensor):

@@ -21,11 +21,12 @@ from macroc_tpu.ops.stencil_pallas import stencil_matvec_soa as jmv
 from macroc_tpu.solve import cg_solve as jcg, jacobi_precond_soa as jjac
 from macroc_tpu_torch.ops import cg_fused
 from macroc_tpu_torch.ops.stencil_spmv import (
+    StencilOperator,
     stencil_matvec,
     stencil_matvec_dot,
     stencil_matvec_soa,
 )
-from macroc_tpu_torch.solve import cg as tcg
+from macroc_tpu_torch.solve import cg as tcg, cg_state
 from macroc_tpu_torch.solve.cg import (
     KSP_CONVERGED_ATOL,
     KSP_CONVERGED_RTOL,
@@ -48,7 +49,7 @@ def _jax_solve(A_j, b, pc, **kw):
 
 def _fused(A_t, b, pc, **kw):
     M = jacobi_precond_soa(A_t) if pc == "jacobi" else identity_precond()
-    return cg_solve(partial(stencil_matvec, A_t), _t(b), M, **kw)
+    return cg_solve(StencilOperator(A_t), _t(b), M, **kw)
 
 
 @pytest.fixture(scope="module", params=list(CASES))
@@ -62,7 +63,7 @@ def test_fused_route_matches_jax(case, pc):
     A_j, A_t, b = case
     rj = _jax_solve(A_j, b, pc, record_trace=200)
     rt = _fused(A_t, b, pc, record_trace=True)
-    assert tcg._fused_operands(partial(stencil_matvec, A_t), _t(b),
+    assert tcg._fused_operands(StencilOperator(A_t), _t(b),
                                jacobi_precond_soa(A_t), None) is not None
     assert rt.its == int(rj.its) > 5 and rt.reason == int(rj.reason) == KSP_CONVERGED_RTOL
     assert _rel(rt.x, rj.x) < 1e-10
@@ -116,25 +117,42 @@ def test_stopping_reasons_match_jax(case, stop, monkeypatch):
 
 
 def test_routes_agree(case):
-    """The fused route, its plain-bound form and the other route (an opaque
-    lambda) take the same iterations to the same x."""
+    """The fused route, its plain-operator form and the other route (an
+    opaque lambda) take the same iterations to the same x.  The route is
+    chosen by the operator's and the preconditioner's types alone."""
     _, A_t, b = case
     M = jacobi_precond_soa(A_t)
-    fused = cg_solve(partial(stencil_matvec, A_t), _t(b), M, record_trace=True)
-    plain = cg_solve(partial(stencil_matvec_soa, A_t), _t(b), M, record_trace=True)
+    fused = cg_solve(StencilOperator(A_t), _t(b), M, record_trace=True)
+    plain = cg_solve(StencilOperator(A_t, stencil_matvec_soa), _t(b), M, record_trace=True)
     opaque = cg_solve(lambda v: stencil_matvec(A_t, v), _t(b), lambda r: M(r),
                       record_trace=True)
-    assert tcg._fused_operands(lambda v: stencil_matvec(A_t, v), _t(b), M, None) is None
-    assert tcg._fused_operands(partial(stencil_matvec, A_t), _t(b), lambda r: M(r),
-                               None) is None
-    assert tcg._fused_operands(partial(stencil_matvec, A_t), _t(b), M, torch.clone) is None
+    for mv, pc, allreduce in ((lambda v: stencil_matvec(A_t, v), M, None),
+                              (partial(stencil_matvec, A_t), M, None),
+                              (StencilOperator(A_t), lambda r: M(r), None),
+                              (StencilOperator(A_t), M, torch.clone)):
+        assert tcg._fused_operands(mv, _t(b), pc, allreduce) is None
     assert torch.equal(plain.x, fused.x) and plain.trace == fused.trace
     assert opaque.its == fused.its and opaque.reason == fused.reason
     assert _rel(opaque.x, fused.x) < 1e-12
+    with pytest.raises(ValueError):
+        StencilOperator(A_t, lambda A, v: stencil_matvec(A, v))
+
+
+@pytest.mark.parametrize("k", [1, 5, 16])
+def test_host_reads_the_flag_every_k(case, k, monkeypatch):
+    """The fused route reads the active flag once per k queued iterations
+    and at the start, and no call of an iteration reads it."""
+    _, A_t, b = case
+    reads = []
+    read = cg_state.CGState.active
+    monkeypatch.setattr(cg_state.CGState, "active", lambda st: reads.append(1) or read(st))
+    monkeypatch.setattr(tcg, "CHECK_EVERY", k)
+    r = _fused(A_t, b, "jacobi")
+    assert r.reason == KSP_CONVERGED_RTOL and len(reads) == -(-r.its // k) + 1
 
 
 def _state(b, *, active=True, maxits=100, pnorm=True):
-    return cg_fused.CGState(b.device, rz=torch.tensor(2.0, dtype=torch.float64),
+    return cg_state.CGState(b.device, rz=torch.tensor(2.0, dtype=torch.float64),
                             rnorm0=1.0, tol=1e-9, div=1e9, abstol=1e-50, maxits=maxits,
                             reason0=0 if active else KSP_CONVERGED_RTOL, pnorm=pnorm,
                             nodes=b[0].numel(), record_trace=True)
@@ -174,7 +192,7 @@ def test_one_iteration_by_hand(pnorm):
     q_ref = stencil_matvec_soa(A, p0)
     alpha = 2.0 / float((p0 * q_ref).sum())
     assert torch.equal(q, q_ref)
-    assert float(state.sc[cg_fused.SC_ALPHA]) == pytest.approx(alpha, rel=1e-14)
+    assert float(state.sc[cg_state.SC_ALPHA]) == pytest.approx(alpha, rel=1e-14)
     cg_fused.cg_update_xr(x, p, r, q, inv, state)
     cg_fused.cg_update_p(p, r, inv, state)
     r_ref = r0 - alpha * q_ref
@@ -183,7 +201,7 @@ def test_one_iteration_by_hand(pnorm):
     nn = float((z * z).sum()) if pnorm else float((r_ref * r_ref).sum())
     assert _rel(x, x0 + alpha * p0) < 1e-14 and _rel(r, r_ref) < 1e-14
     assert _rel(p, z + rz / 2.0 * p0) < 1e-14
-    assert int(state.st[cg_fused.ST_ITS]) == 1 and int(state.st[cg_fused.ST_ACTIVE]) == 1
-    assert float(state.sc[cg_fused.SC_RNORM]) == pytest.approx(nn ** 0.5, rel=1e-14)
-    assert float(state.trace[1]) == float(state.sc[cg_fused.SC_RNORM])
-    assert float(state.sc[cg_fused.SC_RZ]) == pytest.approx(rz, rel=1e-14)
+    assert int(state.st[cg_state.ST_ITS]) == 1 and int(state.st[cg_state.ST_ACTIVE]) == 1
+    assert float(state.sc[cg_state.SC_RNORM]) == pytest.approx(nn ** 0.5, rel=1e-14)
+    assert float(state.trace[1]) == float(state.sc[cg_state.SC_RNORM])
+    assert float(state.sc[cg_state.SC_RZ]) == pytest.approx(rz, rel=1e-14)

@@ -12,7 +12,6 @@ float64 to 1e-9: its micro CG iterates carry the roundoff of another
 summation order, stopped at the 1e-8 CG tolerance."""
 
 import math
-from functools import partial
 
 import numpy as np
 import pytest
@@ -28,6 +27,7 @@ from macroc_tpu_torch.ops import assembly as asm
 from macroc_tpu_torch.constitutive.microfe import MicroFEEngine
 from macroc_tpu_torch.ops import cg_fused
 from macroc_tpu_torch.ops.stencil_spmv import (
+    StencilOperator,
     stencil_matvec,
     stencil_matvec_dot,
     stencil_matvec_dot_plain,
@@ -35,7 +35,7 @@ from macroc_tpu_torch.ops.stencil_spmv import (
     stencil_matvec_v1,
 )
 from macroc_tpu_torch.problem import MacroProblem
-from macroc_tpu_torch.solve import cg as cg_mod
+from macroc_tpu_torch.solve import cg as cg_mod, cg_state
 from macroc_tpu_torch.solve.gmres import gmres_solve
 from macroc_tpu_torch.solve.precond import jacobi_precond_soa
 
@@ -177,7 +177,7 @@ def test_k1v1_kernel_matches_plain(cuda, shape, tile, dtype, tol):
 
 
 def _cg_state(like, active=True):
-    return cg_fused.CGState(like.device, rz=2.0, rnorm0=1.0, tol=1e-30, div=1e30,
+    return cg_state.CGState(like.device, rz=2.0, rnorm0=1.0, tol=1e-30, div=1e30,
                             abstol=1e-50, maxits=40, reason0=0 if active else 2,
                             pnorm=True, nodes=like[0].numel(), record_trace=True)
 
@@ -224,7 +224,7 @@ def test_cg_fused_kernels_match_plain(cuda, shape, dtype, tol):
     pl = _cg_iteration(_PLAIN, A, x, p, r, inv)
     for f in ("q", "x", "r", "p"):
         assert _rel(k[f], pl[f]) < tol, f
-    assert torch.equal(k["st"], pl["st"]) and int(k["st"][cg_fused.ST_ITS]) == 1
+    assert torch.equal(k["st"], pl["st"]) and int(k["st"][cg_state.ST_ITS]) == 1
     # alpha through p.q (cancelling terms: against the sum of |p_i q_i|),
     # then rz, beta, rnorm and the trace (sums of positive terms)
     scale = float((p * pl["q"]).abs().sum(dtype=torch.float64))
@@ -263,7 +263,7 @@ def test_cg_fused_solve_on_gpu_matches_cpu(cuda, monkeypatch):
         rhs = torch.as_tensor(b, device=dev).masked_fill(bc.mask.permute(3, 0, 1, 2), 0.0)
         before = stencil_matvec_dot.launches
         monkeypatch.setattr(cg_mod, "CHECK_EVERY", k)
-        r = cg_mod.cg_solve(partial(stencil_matvec, A), rhs, jacobi_precond_soa(A),
+        r = cg_mod.cg_solve(StencilOperator(A), rhs, jacobi_precond_soa(A),
                             rtol=1e-10, record_trace=True)
         out[(str(dev), k)] = r
         if dev != "cpu":
