@@ -35,12 +35,18 @@ non-zero without the result line):
                update kernels of csrc/cg_fused.cu) against their plain
                versions at 128^3 and every path node shape, f32 and f64,
                two launches bitwise equal, each timed at 128^3 f32 beside
-               K1; a 128^3 Jacobi solve of the BC-eliminated elastic
-               stencil through the fused loop against the same loop on the
-               plain versions and against the unfused loop (K1 behind an
-               opaque operator), ms per iteration each; and the CLI on the
-               main line with -pc_type jacobi (the benchmark's Jacobi
-               cell), with the fused kernels' counters read around it;
+               K1; K1's half-stencil p.q form on a symmetric A against its
+               plain version and the full p.q form at 128^3, 10x3x10 and
+               33x17x45, f32 and f64 (bitwise repeats, a NaN-poisoned
+               lower half unread, a no-op at flag 0), timed in turns with
+               the full form; a 128^3 Jacobi solve of the BC-eliminated
+               elastic stencil (its asymmetry printed) through the fused
+               loop (half-stencil form), the fused loop with the full p.q
+               form, the same loop on the plain versions and the unfused
+               loop (K1 behind an opaque operator), ms per iteration each;
+               and the CLI on the main line with -pc_type jacobi (the
+               benchmark's Jacobi cell), with the fused kernels' counters
+               and its operators' asymmetry read around it;
   5. goldens — the four J2 CG goldens, the GMRES golden and the FE² golden
                (tests/goldens/*.json) at f64 through the kernels;
   6. main    — ``macroc_tpu_torch.cli`` on the 128^3 J2 + MG bending case,
@@ -64,9 +70,10 @@ non-zero without the result line):
                kernels' launch counters read around each: the production
                shape of scripts/production_run.sh (50x3x50 nodes, lx=lz=50,
                circle BC, dt 1e-3, micro_n=10, fast path); the 50x3x50
-               bending line at lx=lz=10; the 10x3x10 full-solve line, 3
-               steps with a checkpoint at step 2 that a -resume run takes
-               up (a MicroState); and the 50x3x50 bending grid loaded until
+               bending line at lx=lz=10; the 10x3x10 full-solve line
+               (Jacobi PCG: the fused route with the full p.q form, its
+               operators' asymmetry printed), 3 steps with a checkpoint at
+               step 2 that a -resume run takes up (a MicroState); and the 50x3x50 bending grid loaded until
                micro GPs yield;
  12. dist    — the domain-decomposed run: K2 on each rank's local box plus
                one node plane per split axis (a slice of a node-shaped
@@ -111,6 +118,7 @@ a subset, build always included, prints "[partial] ..." instead of the
 result lines and exits 4.
 """
 
+import contextlib
 import gc
 import json
 import math
@@ -533,6 +541,9 @@ JACOBI_FLAGS = MAIN_FLAGS + ["-pc_type", "jacobi"]
 # (f32) and 5.4e-13 (f64) on an H100; bounds at ~10x and ~200x that
 CG_SOLVE_TOL = {torch.float32: 3e-4, torch.float64: 1e-10}
 CG_SOLVE_ITS = 1
+# the half-stencil p.q form's checks: the fused route's grids (the main
+# line's, the FE² Jacobi line's) and a ragged one
+SYM_GRIDS = [CG_GRID, JACOBI_GRID, (33, 17, 45)]
 
 
 def cg_state(like, rz, maxits=1 << 30, tol=-1.0):
@@ -559,6 +570,93 @@ def cg_step_fields(state):
     return torch.cat([state.sc, state.st.double(), state.trace[:2]]).nan_to_num()
 
 
+@contextlib.contextmanager
+def fused_asymmetry(rec):
+    """Appends (stencil_asymmetry(A), the operator's ``symmetric`` flag) to
+    ``rec`` for every operator that takes cg_solve's fused route while the
+    block runs (a read of A; no kernel launches)."""
+    from macroc_tpu_torch.ops.stencil_spmv import stencil_asymmetry
+    from macroc_tpu_torch.solve import cg as cg_mod
+
+    fused_operands = cg_mod._fused_operands
+
+    def recording(matvec, b, precond, allreduce):
+        out = fused_operands(matvec, b, precond, allreduce)
+        if out is not None:
+            rec.append((stencil_asymmetry(out[0]), matvec.symmetric))
+        return out
+
+    cg_mod._fused_operands = recording
+    try:
+        yield rec
+    finally:
+        cg_mod._fused_operands = fused_operands
+
+
+def check_dot_sym(dev, gen):
+    """The half-stencil p.q form against its plain version and against the
+    full p.q form on a symmetric random A (the dominant diagonal of
+    phase_cg's check, mirrored into the lower half) at SYM_GRIDS, f32 and
+    f64: two launches bitwise equal, the lower half poisoned with NaN
+    giving the same q, a no-op when the flag is 0.  Returns the 128^3 f32
+    operands for the timing and the largest abs error of q there."""
+    from macroc_tpu_torch.ops.stencil_spmv import (
+        stencil_matvec_dot,
+        stencil_matvec_dot_sym,
+        stencil_matvec_dot_sym_plain,
+        stencil_transpose_soa,
+    )
+
+    kept = None
+    for shape in SYM_GRIDS:
+        errs = []
+        for dtype, tol in TOLS.items():
+            A = 0.1 * torch.randn((27, 3, 3) + shape, dtype=dtype, device=dev, generator=gen)
+            A[13].diagonal(dim1=0, dim2=1).add_(3.0)
+            A = 0.5 * (A + stencil_transpose_soa(A))
+            p = torch.randn((3,) + shape, dtype=dtype, device=dev, generator=gen)
+            q = {}
+            for name, fn in (("sym", stencil_matvec_dot_sym), ("sym again", stencil_matvec_dot_sym),
+                             ("plain", stencil_matvec_dot_sym_plain), ("full", stencil_matvec_dot)):
+                st = cg_state(p, 2.0)
+                q[name] = torch.empty_like(p)
+                fn(A, p, q[name], st)
+                q[name + " sc"] = st.sc.clone()
+            check(torch.equal(q["sym"], q["sym again"]) and torch.equal(q["sym sc"], q["sym again sc"]),
+                  f"cg sym: two launches differ at {shape} {dtype}")
+            pq_scale = float((p * q["plain"]).abs().sum(dtype=torch.float64))
+            e = {}
+            for ref in ("plain", "full"):
+                e[f"q vs {ref}"] = rel_err(q["sym"], q[ref])
+                e[f"pq vs {ref}"] = float((q["sym sc"][1] - q[ref + " sc"][1]).abs()) / pq_scale
+                e[f"alpha vs {ref}"] = float(((q["sym sc"][2] - q[ref + " sc"][2])
+                                              / q[ref + " sc"][2]).abs())
+            bad = {f: v for f, v in e.items() if not v < tol}
+            check(not bad, f"cg sym: the half-stencil form disagrees at {shape} {dtype}: {bad}")
+            A[:13] = float("nan")
+            st = cg_state(p, 2.0)
+            q_nan = torch.empty_like(p)
+            stencil_matvec_dot_sym(A, p, q_nan, st)
+            check(torch.equal(q_nan, q["sym"]) and torch.equal(st.sc, q["sym sc"]),
+                  f"cg sym: the NaN-poisoned lower half changed q at {shape} {dtype}")
+            st = cg_state(p, 2.0)
+            st.st[2] = 0
+            sc0 = st.sc.clone()
+            q_idle = torch.full_like(p, 7.0)
+            stencil_matvec_dot_sym(A, p, q_idle, st)
+            check(bool((q_idle == 7.0).all()) and torch.equal(st.sc, sc0),
+                  f"cg sym: not a no-op with the flag at 0 at {shape} {dtype}")
+            errs.append(f"{str(dtype)[6:]} " + ", ".join(f"{f} {v:.2e}" for f, v in e.items()))
+            if shape == CG_GRID and dtype == torch.float32:
+                A[:13] = stencil_transpose_soa(A)[:13]  # the mirror again, for the full form
+                kept = (A, p, float((q["sym"] - q["plain"]).abs().max()))
+            del A
+        log(f"[cg sym] {shape}: max rel err " + "; ".join(errs)
+            + f" (bounds {TOLS[torch.float32]:g}, {TOLS[torch.float64]:g}); two launches "
+            "bitwise equal; NaN in blocks 0..12 changes nothing; a no-op at flag 0")
+    return kept
+
+
 def phase_cg(dev, path_shapes):
     """The fused PCG iteration's three kernels against their plain
     versions, then a 128^3 Jacobi solve through the three loops, then the
@@ -577,9 +675,12 @@ def phase_cg(dev, path_shapes):
     )
     from macroc_tpu_torch.ops.stencil_spmv import (
         StencilOperator,
+        stencil_asymmetry,
         stencil_matvec,
         stencil_matvec_dot,
         stencil_matvec_dot_plain,
+        stencil_matvec_dot_sym,
+        stencil_matvec_dot_sym_plain,
         stencil_matvec_soa,
     )
     from macroc_tpu_torch.solve.cg import cg_solve
@@ -642,6 +743,7 @@ def phase_cg(dev, path_shapes):
         log(f"[cg] {shape}: max rel err " + "; ".join(errs)
             + f" (bounds {TOLS[torch.float32]:g}, {TOLS[torch.float64]:g}); two launches "
             "bitwise equal")
+    A_sym, p_sym, rec["abs"]["q_sym"] = check_dot_sym(dev, gen)
     # timed at 128^3 f32 beside K1, on a state that never stops
     A, p, x, r, inv = (rec.pop(k) for k in ("A", "p", "x", "r", "inv"))
     q = torch.empty_like(p)
@@ -658,22 +760,39 @@ def phase_cg(dev, path_shapes):
         "p_plain": time_ms(lambda: cg_update_p_plain(p, r, inv, stp), 5),
     }
     check(bool(st.st[2]) and int(st.st[0]) > 50, "cg: the timing state stopped")
+    # the half-stencil form beside the full p.q form on one symmetric A, in
+    # turns (full, half, half, full)
+    q_sym = torch.empty_like(p_sym)
+    st_sym, stp_sym = cg_state(p_sym, 2.0), cg_state(p_sym, 2.0)
+    turns = []
+    for name in ("K1_dot", "K1_dot_sym", "K1_dot_sym", "K1_dot"):
+        fn = stencil_matvec_dot_sym if name == "K1_dot_sym" else stencil_matvec_dot
+        turns.append((name, time_ms(lambda: fn(A_sym, p_sym, q_sym, st_sym), 50)))
+    t["K1_dot_sym"] = min(ms for n, ms in turns if n == "K1_dot_sym")
+    t["K1_dot_sym_plain"] = time_ms(
+        lambda: stencil_matvec_dot_sym_plain(A_sym, p_sym, q_sym, stp_sym), 5)
+    log("[cg sym] 128^3 f32, in turns on one symmetric A: " + ", ".join(
+        f"{n} {ms:.4f} ms" for n, ms in turns))
+    check(bool(st_sym.st[2]), "cg sym: the timing state stopped")
+    del A_sym, p_sym, q_sym, st_sym, stp_sym
     work = {"K1_dot": ((243 + 6) * 4 * nodes, 2 * 243 * nodes + 6 * nodes),
+            # blocks 13..26 (126 planes), p and q
+            "K1_dot_sym": ((126 + 6) * 4 * nodes, 2 * 243 * nodes + 6 * nodes),
             "xr": (7 * 4 * 3 * nodes, 12 * 3 * nodes), "p": (4 * 4 * 3 * nodes, 3 * 3 * nodes)}
+    err_of = {"K1_dot": "q", "K1_dot_sym": "q_sym", "xr": "r", "p": "p"}
     kern = {}
-    for name in ("K1_dot", "xr", "p"):
+    for name in ("K1_dot", "K1_dot_sym", "xr", "p"):
         b_ms, b_by = bound(*work[name])
-        kern[name] = dict(max_abs_err=rec["abs"]["q" if name == "K1_dot" else
-                                                 "r" if name == "xr" else "p"],
-                          ms=t[name], plain_ms=t[name + "_plain"], bound_ms=b_ms,
+        kern[name] = dict(max_abs_err=rec["abs"][err_of[name]], ms=t[name], plain_ms=t[name + "_plain"], bound_ms=b_ms,
                           bound_by=b_by, library_ms=None)
     kern["xr"]["max_abs_err"] = max(rec["abs"]["x"], rec["abs"]["r"])
     log("[cg] 128^3 f32: " + ", ".join(
         f"{n} {t[n]:.4f} ms (bound {kern[n]['bound_ms']:.4f}, "
         f"{kern[n]['bound_ms'] / t[n]:.2f} of it; plain {t[n + '_plain']:.4f})"
-        for n in ("K1_dot", "xr", "p")) + f"; K1 {t['K1']:.4f} ms, so the p.q epilogue "
-        f"costs {t['K1_dot'] - t['K1']:+.4f} ms; one fused iteration "
-        f"{t['K1_dot'] + t['xr'] + t['p']:.4f} ms of kernels")
+        for n in ("K1_dot", "K1_dot_sym", "xr", "p")) + f"; K1 {t['K1']:.4f} ms, so the p.q "
+        f"epilogue costs {t['K1_dot'] - t['K1']:+.4f} ms; one fused iteration "
+        f"{t['K1_dot_sym'] + t['xr'] + t['p']:.4f} ms of kernels (with the full p.q form "
+        f"{t['K1_dot'] + t['xr'] + t['p']:.4f})")
     del A, p, x, r, inv, q, st, stp
     # a 128^3 Jacobi solve: the BC-eliminated elastic stencil of the main
     # line's grid, a seeded right-hand side zero on constrained rows
@@ -691,8 +810,11 @@ def phase_cg(dev, path_shapes):
         A = tbc.apply_bc_stencil_soa(assemble_stencil_soa_kernel(ctan, Bm, grid.wg, shape), bc)
         del ctan
         b = b64.to(dtype).masked_fill(bc.mask.permute(3, 0, 1, 2), 0.0)
+        log(f"[cg] 128^3 elastic operator, BC-eliminated, {str(dtype)[6:]}: asymmetry "
+            f"max|A[o,d,e,p] - A[26-o,e,d,p+off]| / max|A| = {stencil_asymmetry(A):.3e}")
         M = jacobi_precond_soa(A)
         loops = {"fused": (StencilOperator(A), M),
+                 "fused full": (StencilOperator(A, symmetric=False), M),
                  "plain": (StencilOperator(A, stencil_matvec_soa), M),
                  "unfused": (lambda v: stencil_matvec(A, v), lambda v: M(v))}
         res = {}
@@ -725,13 +847,20 @@ def phase_cg(dev, path_shapes):
     for res in solves.values():
         for v in res.values():
             del v["x"]
-    for name in ("xr", "p", "K1_dot"):
+    for name in ("xr", "p", "K1_dot", "K1_dot_sym"):
         kern[name]["solve_ms_per_it"] = {str(d)[6:]: {n: v["ms_per_it"] for n, v in r.items()}
                                          for d, r in solves.items()}
     del solves
-    # the CLI's Jacobi line: the fused kernels on a driven path
-    _, launches = drive_cli("jacobi", JACOBI_FLAGS,
-                            need=("K1", "K2", "K1_dot", "cg_update_xr", "cg_update_p"))
+    # the CLI's Jacobi line: the fused kernels on a driven path, with the
+    # asymmetry of each operator it solves
+    with fused_asymmetry([]) as asym:
+        _, launches = drive_cli("jacobi", JACOBI_FLAGS,
+                                need=("K1", "K2", "K1_dot_sym", "cg_update_xr", "cg_update_p"))
+    log(f"[jacobi] asymmetry of the {len(asym)} operators on the fused route: max "
+        f"{max(a for a, _ in asym):.3e}; marked symmetric {sorted({s for _, s in asym})}")
+    check(launches["K1_dot"] == 0 and all(s for _, s in asym),
+          "jacobi: a J2 operator took the full p.q form")
+    kern["K1_dot_sym"]["asymmetry_j2_128"] = max(a for a, _ in asym)
     return kern, launches
 
 
@@ -830,7 +959,11 @@ def drive_cli(tag, flags, out_dir=None, ckpt_dir=None, need=("K1", "K2")):
     from macroc_tpu_torch import cli
     from macroc_tpu_torch.ops.assembly import assemble_stencil_soa_kernel
     from macroc_tpu_torch.ops.cg_fused import cg_update_p, cg_update_xr
-    from macroc_tpu_torch.ops.stencil_spmv import stencil_matvec, stencil_matvec_dot
+    from macroc_tpu_torch.ops.stencil_spmv import (
+        stencil_matvec,
+        stencil_matvec_dot,
+        stencil_matvec_dot_sym,
+    )
 
     log(f"[{tag}] python -m macroc_tpu_torch " + " ".join(flags))
     with tempfile.TemporaryDirectory() as tmp:
@@ -842,13 +975,15 @@ def drive_cli(tag, flags, out_dir=None, ckpt_dir=None, need=("K1", "K2")):
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         stencil_matvec.launches = stencil_matvec.narrow_launches = 0
-        stencil_matvec_dot.launches = cg_update_xr.launches = cg_update_p.launches = 0
+        stencil_matvec_dot.launches = stencil_matvec_dot_sym.launches = 0
+        cg_update_xr.launches = cg_update_p.launches = 0
         assemble_stencil_soa_kernel.launches = 0
         result = cli.run(argv)
         launches = dict(K1=stencil_matvec.launches,
                         K1_narrow=stencil_matvec.narrow_launches,
                         K2=assemble_stencil_soa_kernel.launches,
                         K1_dot=stencil_matvec_dot.launches,
+                        K1_dot_sym=stencil_matvec_dot_sym.launches,
                         cg_update_xr=cg_update_xr.launches,
                         cg_update_p=cg_update_p.launches)
     peak = torch.cuda.max_memory_allocated()
@@ -864,7 +999,8 @@ def drive_cli(tag, flags, out_dir=None, ckpt_dir=None, need=("K1", "K2")):
     check(bool(torch.isfinite(result["u"]).all()), f"{tag}: non-finite displacement")
     check(bool(torch.isfinite(result["state"].eps_p).all()), f"{tag}: non-finite plastic strain")
     log(f"[{tag}] launches during the run: K1 {launches['K1']} (narrow operator "
-        f"{launches['K1_narrow']}, p.q form {launches['K1_dot']}), K2 {launches['K2']}, "
+        f"{launches['K1_narrow']}, p.q form {launches['K1_dot']}, half-stencil p.q form "
+        f"{launches['K1_dot_sym']}), K2 {launches['K2']}, "
         f"cg_update_xr {launches['cg_update_xr']}, cg_update_p {launches['cg_update_p']}; "
         f"peak device memory {peak / 2**30:.2f} GiB ({base / 2**30:.2f} GiB held "
         f"before the run); phases (s) "
@@ -1043,7 +1179,17 @@ def phase_fe2(dev):
     launches = {"fe2_production": drive_cli("fe2 production", FE2_PRODUCTION)[1],
                 "fe2_bending": drive_cli("fe2 bending", FE2_BENDING)[1]}
     with tempfile.TemporaryDirectory() as whole, tempfile.TemporaryDirectory() as resumed:
-        result, launches["fe2_full"] = drive_cli("fe2 full", FE2_FULL, out_dir=whole)
+        with fused_asymmetry([]) as asym:
+            result, launches["fe2_full"] = drive_cli("fe2 full", FE2_FULL, out_dir=whole)
+        # the micro-FE tangent is symmetric to its micro CG tolerance only:
+        # Jacobi PCG on this grid takes the fused route with the full p.q form
+        log(f"[fe2 full] asymmetry max|A[o,d,e,p] - A[26-o,e,d,p+off]| / max|A| of the "
+            f"{len(asym)} operators on the fused route: max {max(a for a, _ in asym):.3e}, "
+            f"min {min(a for a, _ in asym):.3e}; marked symmetric {sorted({s for _, s in asym})}")
+        check(not any(s for _, s in asym) and launches["fe2_full"]["K1_dot"] > 0
+              and launches["fe2_full"]["K1_dot_sym"] == 0,
+              "fe2 full: the micro-FE operator did not take the full p.q form")
+        fe2_asymmetry = max(a for a, _ in asym)
         cost = result["diag"].cost
         log(f"[fe2 full] micro CG its per real GP in the last step: min "
             f"{float(cost.min()):.0f}, mean {float(cost.mean()):.1f}, max "
@@ -1079,7 +1225,7 @@ def phase_fe2(dev):
         f"{int((d.cost > 0).sum())} of {d.cost.numel()} real GPs solved in full by "
         f"the last homogenize, {d.micro_unconverged} micro solves at the Newton cap")
     check(bool(d.non_linear.any()), "fe2 plastic: no GP yielded")
-    return launches
+    return launches, fe2_asymmetry
 
 
 # the JAX package's documented multi-device line (scripts/pod_run.sh: the
@@ -1676,7 +1822,7 @@ def main():
         return 4
     k1, k1_narrow = got["k1"]
     k1v1, v1_launches = got["k1v1"]
-    fe2 = got["fe2"]
+    fe2, fe2_asymmetry = got["fe2"]
     dist_launches, dist_k1_ms = got["dist"]
     # ``launches`` is the 128^3 J2 main path's count, as since the first
     # slice; ``launches_by_path`` adds each FE² line's own count and each
@@ -1718,14 +1864,20 @@ def main():
     cg_kern, cg_launches = got["cg"]
     port_only = ("none: port-only; the JAX package's CG is one lax.while_loop "
                  "(macroc_tpu/solve/cg.py:127) that XLA fuses")
-    for name, key, src, counter in (
-            ("stencil_spmv p.q form (K1 dot)", "K1_dot", "stencil_spmv.cu", "K1_dot"),
-            ("cg_update_xr", "xr", "cg_fused.cu", "cg_update_xr"),
-            ("cg_update_p", "p", "cg_fused.cu", "cg_update_p")):
+    # the full p.q form runs on the operators not marked symmetric (the
+    # micro-FE engine's): ``launches`` is the FE² Jacobi line's count
+    cg_kern["K1_dot_sym"]["asymmetry_fe2_full"] = fe2_asymmetry
+    for name, key, src, counter, path in (
+            ("stencil_spmv p.q form (K1 dot)", "K1_dot", "stencil_spmv.cu", "K1_dot",
+             "fe2_full"),
+            ("stencil_spmv half-stencil p.q form (K1 dot sym)", "K1_dot_sym",
+             "stencil_spmv.cu", "K1_dot_sym", "j2_128_jacobi"),
+            ("cg_update_xr", "xr", "cg_fused.cu", "cg_update_xr", "j2_128_jacobi"),
+            ("cg_update_p", "p", "cg_fused.cu", "cg_update_p", "j2_128_jacobi")):
+        by = {"j2_128_jacobi": cg_launches[counter], "j2_128": got["main"][counter],
+              "fe2_full": fe2["fe2_full"][counter]}
         kernels.append(dict(name=name, route="cuda", source=f"macroc_tpu_torch/csrc/{src}",
-                            replaces=port_only, launches=cg_launches[counter],
-                            launches_by_path={"j2_128_jacobi": cg_launches[counter],
-                                              "j2_128": got["main"][counter]},
+                            replaces=port_only, launches=by[path], launches_by_path=by,
                             **cg_kern[key]))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -26,6 +26,10 @@ class HomogenizeResult(NamedTuple):
 
 
 class ConstitutiveEngine(Protocol):
+    #: True when every ctan is symmetric to roundoff, so the assembled
+    #: operator is too and the fused CG may apply it from its upper half
+    symmetric_tangent: bool
+
     def init_state(self, batch_shape: Tuple[int, ...]) -> Any:
         """Fresh internal-variable state with leading dims batch_shape."""
         ...

@@ -25,6 +25,9 @@ def elastic_matrix(mat: MaterialParams) -> np.ndarray:
 
 
 class ElasticEngine:
+    #: every tangent is the elastic matrix, symmetric
+    symmetric_tangent = True
+
     def __init__(self, mat: MaterialParams, dtype: torch.dtype,
                  device: torch.device):
         self.mat = mat

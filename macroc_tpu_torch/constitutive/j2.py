@@ -132,6 +132,10 @@ _I_DEV = np.diag([1, 1, 1, 0.5, 0.5, 0.5]) - _ONES33 / 3.0
 
 
 class J2Engine:
+    #: associative J2 with isotropic hardening: the consistent tangent is
+    #: symmetric to roundoff
+    symmetric_tangent = True
+
     def __init__(self, mat: MaterialParams, dtype: torch.dtype,
                  device: torch.device):
         self.mat = mat

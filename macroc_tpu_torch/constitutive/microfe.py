@@ -127,6 +127,10 @@ def _gp_sum(a: torch.Tensor) -> torch.Tensor:
 
 
 class MicroFEEngine:
+    #: the homogenized tangent's columns are CG solves to a tolerance, so
+    #: it is symmetric only to that tolerance
+    symmetric_tangent = False
+
     def __init__(
         self,
         n: int,

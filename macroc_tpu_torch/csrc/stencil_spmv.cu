@@ -18,7 +18,8 @@
 // Bound: device memory.  Each node reads its 243 coefficients once and
 // does 243 FMAs, so the kernel moves about 243 * sizeof(TA) + 6 * sizeof(TX)
 // bytes per node (x is reused from L1/L2 by the 27 neighbours): 996 at
-// f32/f32, 510 at bf16/f32 -- far below the card's flop/byte balance.
+// f32/f32, 510 at bf16/f32 -- far below the card's flop/byte balance.  The
+// half-stencil p.q form below needs 528 at f32.
 //
 // Design: one thread per node, threads laid out with z fastest, so for
 // every (o,d,e) the warp's 32 coefficient reads A[o,d,e,x,y,z..z+31] are
@@ -34,6 +35,21 @@
 // device scalars p.q and alpha = rz / p.q (cg_state.cuh).  It returns at
 // once when the solve's active flag is 0.  f32 and f64, A and x of one
 // type, no halo.  It reads and writes what K1 does, so its bound is K1's.
+//
+// The half-stencil p.q form (DOT = SYM = true; port-only): for a symmetric
+// A, whose block o at p is the transpose of block 26-o at p + off(o),
+//   A[26-o,e,d,p+off(o)] = A[o,d,e,p],
+// the same y from blocks 13..26 alone:
+//   forward   y[d,p] += sum_e A[o,d,e,p]   * x[e,p+off(o)],  o = 13..26
+//   mirrored  y[d,p] += sum_e A[o,e,d,p-off(o)] * x[e,p-off(o)],  o = 14..26
+// (the centre block read in full, 9 planes).  Blocks 0..12 are never read,
+// so the bytes it must move are 126 * sizeof(T) + 6 * sizeof(T) per node,
+// 528 at f32 against 996.  It still issues 243 coefficient loads a node:
+// the mirrored ones hit what another thread read shortly before (the same
+// warp for dk, 512 B back for dj, 16,384 nodes back for di at 128^3, inside
+// the 50 MB L2), so its limit moves from device memory towards L2.  Each
+// offset's forward and mirrored loads follow each other, so a dk mirror
+// finds its lines in L1.  The tail is the p.q form's.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -51,7 +67,7 @@ __device__ __forceinline__ float widen(__nv_bfloat16 v) {
 }
 __device__ __forceinline__ float widen(__half v) { return __half2float(v); }
 
-template <typename TA, typename TX, bool DOT>
+template <typename TA, typename TX, bool DOT, bool SYM = false>
 __global__ void stencil_spmv_kernel(const TA* __restrict__ A,
                                     const TX* __restrict__ x,
                                     TX* __restrict__ y,
@@ -77,8 +93,27 @@ __global__ void stencil_spmv_kernel(const TA* __restrict__ A,
     const int xy = ny + 2 * h, xz = nz + 2 * h;
     const long long xs = (long long)(nx + 2 * h) * xy * xz;  // per-dof stride
 
+    // SYM: the forward blocks 13..26, each followed by its mirror
 #pragma unroll
-    for (int o = 0; o < 27; ++o) {
+    for (int o = SYM ? 13 : 0; o < 27; ++o) {
+      if constexpr (SYM) {
+        // halo == 0 (h = 0, xs = n): node m = p - off(o) and block o there
+        const int mi = i - (o / 9 - 1);
+        const int mj = j - ((o / 3) % 3 - 1);
+        const int mk = k - (o % 3 - 1);
+        if (o > 13 && mi >= 0 && mi < nx && mj >= 0 && mj < ny && mk >= 0 && mk < nz) {
+          const long long m = ((long long)mi * ny + mj) * nz + mk;
+          const TX x0 = x[m], x1 = x[m + n], x2 = x[m + 2 * n];
+          const TA* a = A + (long long)o * 9 * n + m;
+          // A[o,e,d,m] for d = 0, 1, 2: planes 3e + d
+          acc0 += TX(widen(a[0 * n])) * x0 + TX(widen(a[3 * n])) * x1 +
+                  TX(widen(a[6 * n])) * x2;
+          acc1 += TX(widen(a[1 * n])) * x0 + TX(widen(a[4 * n])) * x1 +
+                  TX(widen(a[7 * n])) * x2;
+          acc2 += TX(widen(a[2 * n])) * x0 + TX(widen(a[5 * n])) * x1 +
+                  TX(widen(a[8 * n])) * x2;
+        }
+      }
       const int ii = i + o / 9 - 1;
       const int jj = j + (o / 3) % 3 - 1;
       const int kk = k + o % 3 - 1;
@@ -115,16 +150,17 @@ __global__ void stencil_spmv_kernel(const TA* __restrict__ A,
   }
 }
 
-template <typename TA, typename TX, bool DOT = false>
+template <typename TA, typename TX, bool DOT = false, bool SYM = false>
 int launch(const void* A, const void* x, void* y, int nx, int ny, int nz,
            int halo, void* stream, double* partials = nullptr,
            double* sc = nullptr, int* st = nullptr) {
+  static_assert(!SYM || DOT, "the half-stencil form is a p.q form");
   const long long n = (long long)nx * ny * nz;
   const int threads = macroc_cg::THREADS;
   const long long blocks = (n + threads - 1) / threads;
   if (n > 0)
-    stencil_spmv_kernel<TA, TX, DOT><<<(unsigned)blocks, threads, 0,
-                                       (cudaStream_t)stream>>>(
+    stencil_spmv_kernel<TA, TX, DOT, SYM><<<(unsigned)blocks, threads, 0,
+                                            (cudaStream_t)stream>>>(
         (const TA*)A, (const TX*)x, (TX*)y, nx, ny, nz, halo, partials, sc, st);
   return (int)cudaGetLastError();
 }
@@ -157,6 +193,17 @@ MACROC_SPMV_ENTRY(macroc_stencil_spmv_f32_f64, float, double)
 
 MACROC_SPMV_DOT_ENTRY(macroc_stencil_spmv_dot_f32, float)
 MACROC_SPMV_DOT_ENTRY(macroc_stencil_spmv_dot_f64, double)
+
+// the half-stencil p.q form, for a symmetric A: the same arguments
+#define MACROC_SPMV_DOT_SYM_ENTRY(NAME, T)                                  \
+  int NAME(const void* A, const void* x, void* y, int nx, int ny, int nz, \
+           double* partials, double* sc, int* st, void* stream) {         \
+    return launch<T, T, true, true>(A, x, y, nx, ny, nz, 0, stream,       \
+                                    partials, sc, st);                    \
+  }
+
+MACROC_SPMV_DOT_SYM_ENTRY(macroc_stencil_spmv_dot_sym_f32, float)
+MACROC_SPMV_DOT_SYM_ENTRY(macroc_stencil_spmv_dot_sym_f64, double)
 
 const char* macroc_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

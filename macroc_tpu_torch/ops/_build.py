@@ -50,6 +50,9 @@ _SIGNATURES = {
     # K1's p.q form: (A, p, q, nx, ny, nz, partials, sc, st, stream)
     "macroc_stencil_spmv_dot_f32": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
     "macroc_stencil_spmv_dot_f64": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
+    # its half-stencil form, the same arguments
+    "macroc_stencil_spmv_dot_sym_f32": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
+    "macroc_stencil_spmv_dot_sym_f64": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
     # (x, p, r, q, inv, N, partials, sc, st, trace, stream)
     "macroc_cg_update_xr_f32": (_P, _P, _P, _P, _P, _L, _P, _P, _P, _P, _P),
     "macroc_cg_update_xr_f64": (_P, _P, _P, _P, _P, _L, _P, _P, _P, _P, _P),

@@ -7,9 +7,13 @@ the SpMV metric: 243 stored coefficients per node.
 ``stencil_matvec`` launches K1 (``csrc/stencil_spmv.cu``) and
 ``stencil_matvec_v1`` K1v1 (``csrc/stencil_spmv_v1.cu``, the shared-memory
 tile form) for CUDA tensors; both run ``stencil_matvec_soa`` for CPU
-tensors.  ``stencil_matvec_dot`` launches K1's p·q form, the operator of
+tensors.  ``stencil_matvec_dot`` launches K1's p·q form and
+``stencil_matvec_dot_sym`` its half-stencil form, the operators of
 ``solve/cg.py``'s fused PCG iteration, which runs on a
-:class:`StencilOperator`.  Nothing falls back from one to the other.
+:class:`StencilOperator`: the half-stencil form on a symmetric A, which it
+reads from blocks 13..26 alone (``stencil_matvec_sym_soa`` is its plain
+product), so 528 bytes a node in float32 against the full form's 996.
+Nothing falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from macroc_tpu_torch.fem.kernels import STENCIL_OFFSETS
+from macroc_tpu_torch.fem.kernels import DIAG_OFFSET, N_STENCIL, STENCIL_OFFSETS
 from macroc_tpu_torch.ops.cg_fused import dot64
 
 
@@ -58,6 +62,66 @@ def stencil_matvec_soa(
         for e in range(3):
             y += A_soa[o, :, e] * xw[e]
     return y
+
+
+def _window(d: int, n: int) -> slice:
+    """The nodes p of an extent-n axis whose neighbour p + d lies in the
+    box."""
+    return slice(max(0, -d), n - max(0, d))
+
+
+def stencil_matvec_sym_soa(A_soa: torch.Tensor, x_soa: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch y = A x for a symmetric A from its upper half: blocks
+    13..26 forward (the centre in full), and blocks 14..26 mirrored, as
+    ``A[26-o, d, e, p] = A[o, e, d, p - off(o)]``.  Blocks 0..12 are never
+    read.  No halo; y has x's dtype."""
+    nx, ny, nz = A_soa.shape[-3:]
+    xp = F.pad(x_soa, (1, 1, 1, 1, 1, 1))
+    y = torch.zeros((3, nx, ny, nz), dtype=x_soa.dtype, device=x_soa.device)
+    for o in range(DIAG_OFFSET, N_STENCIL):
+        di, dj, dk = STENCIL_OFFSETS[o]
+        xw = xp[:, 1 + di:1 + di + nx, 1 + dj:1 + dj + ny, 1 + dk:1 + dk + nz]
+        for e in range(3):
+            y += A_soa[o, :, e] * xw[e]
+    for o in range(DIAG_OFFSET + 1, N_STENCIL):
+        di, dj, dk = STENCIL_OFFSETS[o]
+        # t[d, m] = sum_e A[o,e,d,m] x[e,m] goes to node m + off(o)
+        t = sum(A_soa[o, e] * x_soa[e] for e in range(3))
+        tp = F.pad(t, (1, 1, 1, 1, 1, 1))
+        y += tp[:, 1 - di:1 - di + nx, 1 - dj:1 - dj + ny, 1 - dk:1 - dk + nz]
+    return y
+
+
+def stencil_transpose_soa(A_soa: torch.Tensor) -> torch.Tensor:
+    """The stencil of Aᵀ: ``T[o, d, e, p] = A[26-o, e, d, p + off(o)]``,
+    0 where p + off(o) leaves the box."""
+    T = torch.zeros_like(A_soa)
+    nx, ny, nz = A_soa.shape[-3:]
+    for o, (di, dj, dk) in enumerate(STENCIL_OFFSETS):
+        wi, wj, wk = _window(di, nx), _window(dj, ny), _window(dk, nz)
+        src = A_soa[N_STENCIL - 1 - o].transpose(0, 1)
+        T[o, :, :, wi, wj, wk] = src[:, :, _shift(wi, di), _shift(wj, dj), _shift(wk, dk)]
+    return T
+
+
+def stencil_asymmetry(A_soa: torch.Tensor) -> float:
+    """max |A[o,d,e,p] - A[26-o,e,d,p+off(o)]| over the couplings inside
+    the box, over max |A|: 0 for a symmetric operator, roundoff for one
+    assembled from symmetric tangents."""
+    nx, ny, nz = A_soa.shape[-3:]
+    worst = torch.zeros((), dtype=torch.float64, device=A_soa.device)
+    for o in range(DIAG_OFFSET, N_STENCIL):
+        di, dj, dk = STENCIL_OFFSETS[o]
+        wi, wj, wk = _window(di, nx), _window(dj, ny), _window(dk, nz)
+        up = A_soa[o][:, :, wi, wj, wk]
+        low = A_soa[N_STENCIL - 1 - o].transpose(0, 1)[
+            :, :, _shift(wi, di), _shift(wj, dj), _shift(wk, dk)]
+        worst = torch.maximum(worst, (up - low).abs().max().double())
+    return float(worst / A_soa.abs().max().double())
+
+
+def _shift(w: slice, d: int) -> slice:
+    return slice(w.start + d, w.stop + d)
 
 
 def stencil_matvec(
@@ -125,14 +189,19 @@ class StencilOperator:
     (:func:`stencil_matvec`, the default) or its plain version
     (:func:`stencil_matvec_soa`).  ``solve/cg.py::cg_solve`` runs its fused
     PCG iteration on this type: K1's p·q form with ``apply`` K1, the plain
-    versions of the iteration's kernels with ``apply`` the plain one."""
+    versions of the iteration's kernels with ``apply`` the plain one.
+    ``symmetric`` (CG's own assumption, the default) lets that iteration
+    apply A from its upper half (:func:`stencil_matvec_dot_sym`); an
+    operator symmetric only to a solver tolerance, as the micro-FE
+    engine's, passes False and keeps the full product."""
 
-    def __init__(self, A_soa: torch.Tensor, apply=stencil_matvec):
+    def __init__(self, A_soa: torch.Tensor, apply=stencil_matvec, symmetric: bool = True):
         if apply not in (stencil_matvec, stencil_matvec_soa):
             raise ValueError(f"StencilOperator applies stencil_matvec or "
                              f"stencil_matvec_soa, not {apply!r}")
         self.A_soa = A_soa
         self.apply = apply
+        self.symmetric = symmetric
 
     def __call__(self, x_soa: torch.Tensor) -> torch.Tensor:
         return self.apply(self.A_soa, x_soa)
@@ -147,6 +216,13 @@ def stencil_matvec_dot_plain(A_soa, p, q, state) -> None:
     state.set_alpha(dot64(p, q))
 
 
+def stencil_matvec_dot_sym_plain(A_soa, p, q, state) -> None:
+    """The half-stencil p·q form, plain: as :func:`stencil_matvec_dot_plain`
+    with q = A p taken from A's upper half (:func:`stencil_matvec_sym_soa`)."""
+    q.copy_(torch.where(state.running(), stencil_matvec_sym_soa(A_soa, p), q))
+    state.set_alpha(dot64(p, q))
+
+
 def stencil_matvec_dot(A_soa, p, q, state) -> None:
     """K1's p·q form (``stencil_spmv_kernel<T, T, true>``) on CUDA
     tensors, its plain version on CPU tensors: q = A p in place, and p·q
@@ -155,6 +231,26 @@ def stencil_matvec_dot(A_soa, p, q, state) -> None:
     ``stencil_matvec_dot.launches``."""
     if not A_soa.is_cuda:
         return stencil_matvec_dot_plain(A_soa, p, q, state)
+    _launch_dot(_ENTRY_DOT, "stencil_matvec_dot", A_soa, p, q, state)
+    stencil_matvec_dot.launches += 1
+
+
+def stencil_matvec_dot_sym(A_soa, p, q, state) -> None:
+    """The half-stencil p·q form (``stencil_spmv_kernel<T, T, true, true>``)
+    for a symmetric A on CUDA tensors, its plain version on CPU tensors:
+    q = A p from blocks 13..26 of A alone, and p·q and α into ``state``.
+    The same arguments as :func:`stencil_matvec_dot`.  Counts its launches
+    in ``stencil_matvec.launches`` (it is K1) and in
+    ``stencil_matvec_dot_sym.launches``."""
+    if not A_soa.is_cuda:
+        return stencil_matvec_dot_sym_plain(A_soa, p, q, state)
+    _launch_dot(_ENTRY_DOT_SYM, "stencil_matvec_dot_sym", A_soa, p, q, state)
+    stencil_matvec_dot_sym.launches += 1
+
+
+def _launch_dot(entries, what, A_soa, p, q, state) -> None:
+    """Check the p·q forms' arguments and launch ``entries[A's dtype]``;
+    counts the launch in ``stencil_matvec.launches``."""
     from macroc_tpu_torch.ops import _build
 
     nx, ny, nz = A_soa.shape[-3:]
@@ -163,15 +259,15 @@ def stencil_matvec_dot(A_soa, p, q, state) -> None:
     if p.shape != (3, nx, ny, nz) or q.shape != p.shape:
         raise ValueError(f"p {tuple(p.shape)} and q {tuple(q.shape)} do not fit A "
                          f"{(nx, ny, nz)}")
-    entry = _ENTRY_DOT.get(A_soa.dtype)
+    entry = entries.get(A_soa.dtype)
     if entry is None or p.dtype != A_soa.dtype or q.dtype != A_soa.dtype:
-        raise TypeError(f"stencil_matvec_dot takes A, p and q of one dtype, float32 "
+        raise TypeError(f"{what} takes A, p and q of one dtype, float32 "
                         f"or float64, got {A_soa.dtype}, {p.dtype}, {q.dtype}")
-    _check_device_layout(A_soa, p, "stencil_matvec_dot")
+    _check_device_layout(A_soa, p, what)
     if q.device != A_soa.device or not q.is_contiguous():
-        raise ValueError("stencil_matvec_dot needs a contiguous q on A's device")
+        raise ValueError(f"{what} needs a contiguous q on A's device")
     if state.sc.device != A_soa.device or state.partials is None:
-        raise ValueError("stencil_matvec_dot: the CGState is not on A's device")
+        raise ValueError(f"{what}: the CGState is not on A's device")
     lib = _build.load()
     with torch.cuda.device(A_soa.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -180,15 +276,19 @@ def stencil_matvec_dot(A_soa, p, q, state) -> None:
             state.partials.data_ptr(), state.sc.data_ptr(), state.st.data_ptr(),
             stream,
         )
-    _build.check(err, "stencil_matvec_dot (K1 p·q form)")
+    _build.check(err, f"{what} (K1 p·q form)")
     stencil_matvec.launches += 1
-    stencil_matvec_dot.launches += 1
 
 
 stencil_matvec_dot.launches = 0
+stencil_matvec_dot_sym.launches = 0
 _ENTRY_DOT = {
     torch.float32: "macroc_stencil_spmv_dot_f32",
     torch.float64: "macroc_stencil_spmv_dot_f64",
+}
+_ENTRY_DOT_SYM = {
+    torch.float32: "macroc_stencil_spmv_dot_sym_f32",
+    torch.float64: "macroc_stencil_spmv_dot_sym_f64",
 }
 
 

@@ -352,7 +352,8 @@ class MacroProblem:
             A_soa = bc_mod.apply_bc_stencil_soa(A_soa, self.bc)
         if self.mesh is None:
             # cg_solve runs its fused iteration on a StencilOperator
-            matvec = StencilOperator(A_soa, _OPERATORS[plan["operator"]])
+            matvec = StencilOperator(A_soa, _OPERATORS[plan["operator"]],
+                                     symmetric=self.engine.symmetric_tangent)
         else:
             matvec = partial(stencil_matvec_local, A_soa, mesh=self.mesh)
         with self._phase("precond_setup"):

@@ -16,7 +16,9 @@ Two routes, each the same on the CPU and the card:
     :class:`~macroc_tpu_torch.solve.precond.DiagonalPrecond` (Jacobi or
     identity) or none, in one process.  An iteration is three calls, each a
     kernel on CUDA tensors and its plain version on CPU tensors: K1's p·q
-    form (``ops/stencil_spmv.py::stencil_matvec_dot``), then
+    form (``ops/stencil_spmv.py::stencil_matvec_dot_sym``, which reads the
+    upper half of a symmetric A, or ``stencil_matvec_dot`` on an operator
+    that is not marked ``symmetric``), then
     ``ops/cg_fused.py::cg_update_xr`` and ``cg_update_p``.  An operator
     that applies K1's plain version runs the three plain versions on any
     device.  Inner products are products in the vectors' type summed in
@@ -66,6 +68,8 @@ from macroc_tpu_torch.ops.stencil_spmv import (
     stencil_matvec,
     stencil_matvec_dot,
     stencil_matvec_dot_plain,
+    stencil_matvec_dot_sym,
+    stencil_matvec_dot_sym_plain,
     stencil_matvec_soa,
 )
 from macroc_tpu_torch.solve.cg_state import (
@@ -90,10 +94,15 @@ KSP_REASON_NAMES = {
 #: iterations between two host reads of the fused route's active flag
 CHECK_EVERY = 16
 
-#: the fused route's three calls, by the operator's ``apply``
+#: the fused route's three calls, by the operator's ``apply`` and
+#: ``symmetric``: a symmetric A is applied from its upper half
 _FUSED_STEPS = {
-    stencil_matvec: (stencil_matvec_dot, cg_update_xr, cg_update_p),
-    stencil_matvec_soa: (stencil_matvec_dot_plain, cg_update_xr_plain, cg_update_p_plain),
+    (stencil_matvec, True): (stencil_matvec_dot_sym, cg_update_xr, cg_update_p),
+    (stencil_matvec, False): (stencil_matvec_dot, cg_update_xr, cg_update_p),
+    (stencil_matvec_soa, True): (stencil_matvec_dot_sym_plain, cg_update_xr_plain,
+                                 cg_update_p_plain),
+    (stencil_matvec_soa, False): (stencil_matvec_dot_plain, cg_update_xr_plain,
+                                  cg_update_p_plain),
 }
 
 
@@ -128,7 +137,7 @@ def _fused_operands(matvec, b, precond, allreduce):
             or b.shape != (3,) + tuple(A_soa.shape[-3:])
             or (inv is not None and (inv.shape != b.shape or inv.dtype != b.dtype))):
         return None
-    return A_soa, inv, _FUSED_STEPS[matvec.apply]
+    return A_soa, inv, _FUSED_STEPS[matvec.apply, matvec.symmetric]
 
 
 def cg_solve(

@@ -31,8 +31,11 @@ from macroc_tpu_torch.ops.stencil_spmv import (
     stencil_matvec,
     stencil_matvec_dot,
     stencil_matvec_dot_plain,
+    stencil_matvec_dot_sym,
+    stencil_matvec_dot_sym_plain,
     stencil_matvec_soa,
     stencil_matvec_v1,
+    stencil_transpose_soa,
 )
 from macroc_tpu_torch.problem import MacroProblem
 from macroc_tpu_torch.solve import cg as cg_mod, cg_state
@@ -237,6 +240,46 @@ def test_cg_fused_kernels_match_plain(cuda, shape, dtype, tol):
     assert torch.equal(idle["p"], p) and not idle["q"].any()
 
 
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("shape", [(33, 17, 45), (10, 3, 10), (5, 3, 5)])
+def test_cg_sym_kernel_matches_plain(cuda, shape, dtype, tol):
+    """The half-stencil p.q form on a symmetric A against its plain version
+    (q, p.q, alpha); two launches bitwise equal; blocks 0..12 poisoned
+    with NaN give the same q; a no-op when the flag is 0."""
+    rng = np.random.default_rng(9)
+    A = 0.1 * rng.normal(size=(27, 3, 3) + shape)
+    A[13, [0, 1, 2], [0, 1, 2]] += 3.0
+    A = torch.as_tensor(A, dtype=dtype, device=cuda)
+    A = 0.5 * (A + stencil_transpose_soa(A))
+    p = torch.as_tensor(rng.normal(size=(3,) + shape), dtype=dtype, device=cuda)
+    runs = []
+    for _ in range(2):
+        before = (stencil_matvec.launches, stencil_matvec_dot_sym.launches)
+        q, st = torch.zeros_like(p), _cg_state(p)
+        stencil_matvec_dot_sym(A, p, q, st)
+        assert (stencil_matvec.launches, stencil_matvec_dot_sym.launches) == tuple(
+            n + 1 for n in before)
+        runs.append((q, st.sc.clone()))
+    (q, sc), (q2, sc2) = runs
+    assert torch.equal(q, q2) and torch.equal(sc, sc2)
+    qp, stp = torch.zeros_like(p), _cg_state(p)
+    stencil_matvec_dot_sym_plain(A, p, qp, stp)
+    assert _rel(q, qp) < tol
+    assert _rel(q, stencil_matvec_soa(A, p)) < tol
+    scale = float((p * qp).abs().sum(dtype=torch.float64))
+    assert abs(float(sc[cg_state.SC_PQ] - stp.sc[cg_state.SC_PQ])) < tol * scale
+    assert abs(float(sc[cg_state.SC_ALPHA] / stp.sc[cg_state.SC_ALPHA]) - 1.0) < tol
+    A[:13] = float("nan")
+    qn, stn = torch.zeros_like(p), _cg_state(p)
+    stencil_matvec_dot_sym(A, p, qn, stn)
+    assert torch.equal(qn, q) and torch.equal(stn.sc, sc)
+    idle = _cg_state(p, active=False)
+    sc0 = idle.sc.clone()
+    qi = torch.full_like(p, 7.0)
+    stencil_matvec_dot_sym(A, p, qi, idle)
+    assert bool((qi == 7.0).all()) and torch.equal(idle.sc, sc0)
+
+
 def test_cg_fused_solve_on_gpu_matches_cpu(cuda, monkeypatch):
     """Jacobi PCG on a BC-eliminated 17x5x17 circle stencil at float64 to
     rtol 1e-10: the fused loop's kernels on the card against its plain
@@ -261,14 +304,14 @@ def test_cg_fused_solve_on_gpu_matches_cpu(cuda, monkeypatch):
             assemble_stencil_soa(torch.as_tensor(ct, device=dev), B, grid.wg, shape), bc
         )
         rhs = torch.as_tensor(b, device=dev).masked_fill(bc.mask.permute(3, 0, 1, 2), 0.0)
-        before = stencil_matvec_dot.launches
+        before = stencil_matvec_dot_sym.launches
         monkeypatch.setattr(cg_mod, "CHECK_EVERY", k)
         r = cg_mod.cg_solve(StencilOperator(A), rhs, jacobi_precond_soa(A),
                             rtol=1e-10, record_trace=True)
         out[(str(dev), k)] = r
         if dev != "cpu":
             # every queued iteration launches, the no-ops after convergence too
-            assert r.its <= stencil_matvec_dot.launches - before < r.its + k
+            assert r.its <= stencil_matvec_dot_sym.launches - before < r.its + k
     c, g1, g16 = out[("cpu", 16)], out[(str(cuda), 1)], out[(str(cuda), 16)]
     assert abs(g1.its - c.its) <= 1 and g1.reason == c.reason > 0 and c.its > 300
     assert _rel(g1.x.cpu(), c.x) < 1e-10
@@ -327,6 +370,12 @@ def test_wrappers_reject_bad_input(cuda):
         stencil_matvec_dot(A.half(), v.half(), v.half(), st)
     with pytest.raises(ValueError):
         stencil_matvec_dot(A, v, torch.zeros((3, 4, 4, 5), device=cuda), st)
+    before = stencil_matvec_dot_sym.launches
+    with pytest.raises(TypeError):
+        stencil_matvec_dot_sym(A.double(), v, v, st)
+    with pytest.raises(ValueError):
+        stencil_matvec_dot_sym(A, v, v, _cg_state(v.cpu()))
+    assert stencil_matvec_dot_sym.launches == before
     with pytest.raises(ValueError):
         cg_fused.cg_update_xr(v, v, v, v.double(), None, st)
     with pytest.raises(ValueError):
