@@ -1033,7 +1033,10 @@ def compare_rows(tag, got, want):
 
 
 def phase_main(dev):
-    return drive_cli("main", MAIN_FLAGS)[1]
+    launches = drive_cli("main", MAIN_FLAGS)[1]
+    # MG preconditions through the host loop: full K1, no p.q form
+    check(launches["K1_dot"] == launches["K1_dot_sym"] == 0, "main: an MG solve took the fused route")
+    return launches
 
 
 def phase_solvers(dev):

@@ -48,14 +48,12 @@ __device__ __forceinline__ double block_sum(double v) {
 }
 
 // Thread 0 has written this block's partials; true in every thread of the
-// block that finishes last (of all gridDim.x * gridDim.y * gridDim.z).
-// That block resets the counter.
+// block that finishes last.  That block resets the counter.
 __device__ __forceinline__ bool last_block(int* st) {
   __shared__ bool last;
   if (threadIdx.x == 0) {
     __threadfence();  // the partials before the count
-    last = atomicAdd(reinterpret_cast<unsigned*>(&st[ST_COUNT]), 1u) ==
-           gridDim.x * gridDim.y * gridDim.z - 1;
+    last = atomicAdd(reinterpret_cast<unsigned*>(&st[ST_COUNT]), 1u) == gridDim.x - 1;
   }
   __syncthreads();
   if (last && threadIdx.x == 0) st[ST_COUNT] = 0;

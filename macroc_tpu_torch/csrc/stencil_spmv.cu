@@ -40,28 +40,20 @@
 // symmetric A, whose block o at p is the transpose of block 26-o at
 // p + off(o),  A[26-o,e,d,p+off(o)] = A[o,d,e,p],  the same y and tail
 // from blocks 13..26 alone:
-//   forward   y[d,p] += sum_e A[o,d,e,p] * x[e,p+off(o)],        o = 13..26
-//   mirrored  y[d,p] += t_o[d, p-off(o)],  t_o[d,m] = sum_e A[o,e,d,m] x[e,m],
-//                                                                o = 14..26
+//   forward   y[d,p] += sum_e A[o,d,e,p] * x[e,p+off(o)],          o = 13..26
+//   mirrored  y[d,p] += sum_e A[o,e,d,p-off(o)] * x[e,p-off(o)],   o = 14..26
 // (the centre block read in full, 9 planes).  Blocks 0..12 are never read,
 // so the bytes it must move are (126 + 6) * sizeof(T) a node: 528 at f32
-// against the full form's 996.
-//
-// Design: reading the mirrored blocks again at p - off(o), one thread per
-// node as K1, left 243 loads a node, half of them served by L2 (0.50 ms at
-// 128^3 f32 on an H100, 0.66 of the bound).  Here each coefficient is loaded
-// once: a block owns a SYM_TY x SYM_TZ tile of a j-k plane, one thread a
-// node, and marches through SYM_PLANES planes along i.  At each plane a
-// thread loads its node's blocks 13..26, adds the forward products, and
-// leaves the 3-vector t_o of each mirrored block in shared memory
-// (13 * 3 values a node instead of 13 * 9 coefficients); the threads of a
-// one-node ring around the tile leave the t_o that reach into the tile.
-// The mirrors with di = 0 (o = 14..17) are read back after a barrier in the
-// same plane, those with di = 1 (o = 18..26) in the next plane, so the
-// block first computes them for the plane below its first.  Loads: 126
-// a node plus the ring (~10%) and that extra plane (9 blocks per
-// SYM_PLANES planes).  Each thread sums p.q over its planes; the block sum,
-// last_block and the scalars are the p.q form's.
+// against the full form's 996.  Design: K1's, one thread per node, z
+// fastest; each offset's mirrored loads come just before its forward ones.
+// It still makes 243 coefficient loads a node: a mirrored load finds what
+// another thread read shortly before (the same warp for dk, 512 B back for
+// dj, 16,384 nodes back for di at 128^3, inside the 50 MB L2), so device
+// memory moves the upper half once.  Its registers are capped so that four
+// blocks of 256 fit an SM (f32).  A tile form that loads each coefficient
+// once -- a j-k tile marching along i, the mirrored products A^T x of a
+// plane handed on through shared memory -- ran slower on an H100 (PERF.md
+// section 6).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -143,147 +135,57 @@ __global__ void stencil_spmv_kernel(const TA* __restrict__ A,
   }
 }
 
-// the half-stencil form's tile: SYM_TY x SYM_TZ nodes of a j-k plane, one
-// thread each, through SYM_PLANES planes; the window adds a one-node ring
-constexpr int SYM_PLANES = 8, SYM_TY = 8, SYM_TZ = 32;
-constexpr int SYM_WZ = SYM_TZ + 2, SYM_WS = (SYM_TY + 2) * SYM_WZ;
-constexpr int SYM_RING = 2 * SYM_WZ + 2 * SYM_TY;  // ring cells, one thread each
-constexpr int SYM_SLOTS = 13;                      // t_o for o = 14..26
-static_assert(SYM_TY * SYM_TZ == macroc_cg::THREADS, "one thread per tile node");
-
 template <typename T>
-__global__ void __launch_bounds__(macroc_cg::THREADS)
+__global__ void __launch_bounds__(macroc_cg::THREADS, sizeof(T) == 4 ? 4 : 3)
     stencil_spmv_kernel_sym(const T* __restrict__ A, const T* __restrict__ x,
                             T* __restrict__ y, int nx, int ny, int nz,
                             double* __restrict__ partials, double* __restrict__ sc,
                             int* __restrict__ st) {
   using namespace macroc_cg;
   if (st[ST_ACTIVE] == 0) return;
-  // t[o - 14][d][window cell]; cell (wj, wk) is tile node (wj - 1, wk - 1)
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* t = reinterpret_cast<T*>(smem_raw);
   const long long n = (long long)nx * ny * nz;
-  const int i0 = blockIdx.x * SYM_PLANES, i1 = min(i0 + SYM_PLANES, nx);
-  const int k0 = blockIdx.y * SYM_TZ, j0 = blockIdx.z * SYM_TY;
-  const int tk = threadIdx.x % SYM_TZ, tj = threadIdx.x / SYM_TZ;
-  const int j = j0 + tj, k = k0 + tk;
-  const bool own = j < ny && k < nz;
-  const int cell = (tj + 1) * SYM_WZ + (tk + 1);
-  // this thread's ring cell (rj, rk), tile-relative: the rows rj = -1 and
-  // SYM_TY, then the columns rk = -1 and SYM_TZ
-  const bool ring = threadIdx.x < SYM_RING;
-  int rj = 0, rk = 0;
-  if (threadIdx.x < 2 * SYM_WZ) {
-    rj = threadIdx.x < SYM_WZ ? -1 : SYM_TY;
-    rk = threadIdx.x % SYM_WZ - 1;
-  } else if (ring) {
-    const int u = threadIdx.x - 2 * SYM_WZ;
-    rj = u % SYM_TY;
-    rk = u < SYM_TY ? -1 : SYM_TZ;
-  }
-  const int rcell = (rj + 1) * SYM_WZ + (rk + 1);
-  const bool ring_jk = ring && j0 + rj >= 0 && j0 + rj < ny && k0 + rk >= 0 && k0 + rk < nz;
-
-  // t_o of node m (0 when it lies outside the box) into window cell c
-  auto put = [&](int o, int c, bool in, long long m, T x0, T x1, T x2) {
-    T c0 = T(0), c1 = T(0), c2 = T(0);
-    if (in) {
-      const T* a = A + (long long)o * 9 * n + m;
-      c0 = a[0 * n] * x0 + a[3 * n] * x1 + a[6 * n] * x2;
-      c1 = a[1 * n] * x0 + a[4 * n] * x1 + a[7 * n] * x2;
-      c2 = a[2 * n] * x0 + a[5 * n] * x1 + a[8 * n] * x2;
-    }
-    T* s = t + (o - 14) * 3 * SYM_WS + c;
-    s[0] = c0;
-    s[SYM_WS] = c1;
-    s[2 * SYM_WS] = c2;
-  };
-  // the ring cell's t_o at plane i for o >= olo, where they reach the tile
-  auto put_ring = [&](int i, int olo) {
-    if (!ring) return;
-    const bool in = ring_jk && i >= 0;
-    const long long m = ((long long)i * ny + (j0 + rj)) * nz + (k0 + rk);
-    const T x0 = in ? x[m] : T(0), x1 = in ? x[m + n] : T(0), x2 = in ? x[m + 2 * n] : T(0);
-#pragma unroll
-    for (int o = 14; o < 27; ++o) {
-      const int tj2 = rj + (o / 3) % 3 - 1, tk2 = rk + o % 3 - 1;
-      if (o >= olo && tj2 >= 0 && tj2 < SYM_TY && tk2 >= 0 && tk2 < SYM_TZ)
-        put(o, rcell, in, m, x0, x1, x2);
-    }
-  };
-
-  {  // the plane below the first: t_o for o = 18..26
-    const int i = i0 - 1;
-    const bool in = own && i >= 0;
-    const long long m = ((long long)i * ny + j) * nz + k;
-    const T x0 = in ? x[m] : T(0), x1 = in ? x[m + n] : T(0), x2 = in ? x[m + 2 * n] : T(0);
-#pragma unroll
-    for (int o = 18; o < 27; ++o) put(o, cell, in, m, x0, x1, x2);
-    put_ring(i, 18);
-  }
-  double pq = 0.0;
-  for (int i = i0; i < i1; ++i) {
-    __syncthreads();  // t of the plane below is complete
-    const long long p = ((long long)i * ny + j) * nz + k;
-    T acc0 = T(0), acc1 = T(0), acc2 = T(0);
-#pragma unroll
-    for (int o = 18; o < 27; ++o) {
-      const T* s = t + (o - 14) * 3 * SYM_WS + cell - ((o / 3) % 3 - 1) * SYM_WZ - (o % 3 - 1);
-      acc0 += s[0];
-      acc1 += s[SYM_WS];
-      acc2 += s[2 * SYM_WS];
-    }
-    __syncthreads();  // every thread has read it
-    const T x0 = own ? x[p] : T(0), x1 = own ? x[p + n] : T(0),
-            x2 = own ? x[p + 2 * n] : T(0);
+  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = p < n;  // every thread of a block reaches its block sum
+  T acc0 = T(0), acc1 = T(0), acc2 = T(0);
+  if (live) {
+    const int k = (int)(p % nz);
+    const int j = (int)((p / nz) % ny);
+    const int i = (int)(p / ((long long)ny * nz));
 #pragma unroll
     for (int o = 13; o < 27; ++o) {
-      T c0 = T(0), c1 = T(0), c2 = T(0);
-      if (own) {
+      const int di = o / 9 - 1, dj = (o / 3) % 3 - 1, dk = o % 3 - 1;
+      // mirrored: block o at m = p - off(o), transposed
+      const int mi = i - di, mj = j - dj, mk = k - dk;
+      if (o > 13 && mi >= 0 && mi < nx && mj >= 0 && mj < ny && mk >= 0 && mk < nz) {
+        const long long m = ((long long)mi * ny + mj) * nz + mk;
+        const T x0 = x[m], x1 = x[m + n], x2 = x[m + 2 * n];
+        const T* a = A + (long long)o * 9 * n + m;
+        acc0 += a[0 * n] * x0 + a[3 * n] * x1 + a[6 * n] * x2;
+        acc1 += a[1 * n] * x0 + a[4 * n] * x1 + a[7 * n] * x2;
+        acc2 += a[2 * n] * x0 + a[5 * n] * x1 + a[8 * n] * x2;
+      }
+      // forward: block o at p
+      const int ii = i + di, jj = j + dj, kk = k + dk;
+      if (ii >= 0 && ii < nx && jj >= 0 && jj < ny && kk >= 0 && kk < nz) {
+        const long long q = ((long long)ii * ny + jj) * nz + kk;
+        const T x0 = x[q], x1 = x[q + n], x2 = x[q + 2 * n];
         const T* a = A + (long long)o * 9 * n + p;
-        const T a0 = a[0 * n], a1 = a[1 * n], a2 = a[2 * n], a3 = a[3 * n], a4 = a[4 * n],
-                a5 = a[5 * n], a6 = a[6 * n], a7 = a[7 * n], a8 = a[8 * n];
-        const int ii = i + o / 9 - 1, jj = j + (o / 3) % 3 - 1, kk = k + o % 3 - 1;
-        if (ii < nx && jj >= 0 && jj < ny && kk >= 0 && kk < nz) {
-          const long long q = ((long long)ii * ny + jj) * nz + kk;
-          const T y0 = x[q], y1 = x[q + n], y2 = x[q + 2 * n];
-          acc0 += a0 * y0 + a1 * y1 + a2 * y2;
-          acc1 += a3 * y0 + a4 * y1 + a5 * y2;
-          acc2 += a6 * y0 + a7 * y1 + a8 * y2;
-        }
-        c0 = a0 * x0 + a3 * x1 + a6 * x2;
-        c1 = a1 * x0 + a4 * x1 + a7 * x2;
-        c2 = a2 * x0 + a5 * x1 + a8 * x2;
-      }
-      if (o > 13) {
-        T* s = t + (o - 14) * 3 * SYM_WS + cell;
-        s[0] = c0;
-        s[SYM_WS] = c1;
-        s[2 * SYM_WS] = c2;
+        acc0 += a[0 * n] * x0 + a[1 * n] * x1 + a[2 * n] * x2;
+        acc1 += a[3 * n] * x0 + a[4 * n] * x1 + a[5 * n] * x2;
+        acc2 += a[6 * n] * x0 + a[7 * n] * x1 + a[8 * n] * x2;
       }
     }
-    put_ring(i, 14);
-    __syncthreads();  // t of this plane is complete
-#pragma unroll
-    for (int o = 14; o < 18; ++o) {
-      const T* s = t + (o - 14) * 3 * SYM_WS + cell - ((o / 3) % 3 - 1) * SYM_WZ - (o % 3 - 1);
-      acc0 += s[0];
-      acc1 += s[SYM_WS];
-      acc2 += s[2 * SYM_WS];
-    }
-    if (own) {
-      y[p] = acc0;
-      y[p + n] = acc1;
-      y[p + 2 * n] = acc2;
-      pq += double(x0 * acc0) + double(x1 * acc1) + double(x2 * acc2);
-    }
+    y[p] = acc0;
+    y[p + n] = acc1;
+    y[p + 2 * n] = acc2;
   }
+  const double pq = live ? double(x[p] * acc0) + double(x[p + n] * acc1) +
+                               double(x[p + 2 * n] * acc2)
+                         : 0.0;
   const double block = block_sum(pq);
-  const unsigned nblocks = gridDim.x * gridDim.y * gridDim.z;
-  if (threadIdx.x == 0)
-    partials[(blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] = block;
+  if (threadIdx.x == 0) partials[blockIdx.x] = block;
   if (!last_block(st)) return;
-  const double total = sum_partials(partials, (int)nblocks);
+  const double total = sum_partials(partials, gridDim.x);
   if (threadIdx.x == 0) {
     sc[SC_PQ] = total;
     sc[SC_ALPHA] = sc[SC_RZ] / total;
@@ -293,14 +195,11 @@ __global__ void __launch_bounds__(macroc_cg::THREADS)
 template <typename T>
 int launch_sym(const void* A, const void* x, void* y, int nx, int ny, int nz,
                double* partials, double* sc, int* st, void* stream) {
-  const size_t smem = (size_t)SYM_SLOTS * 3 * SYM_WS * sizeof(T);
-  const cudaError_t err = cudaFuncSetAttribute(
-      stencil_spmv_kernel_sym<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((nx + SYM_PLANES - 1) / SYM_PLANES, (nz + SYM_TZ - 1) / SYM_TZ,
-                  (ny + SYM_TY - 1) / SYM_TY);
-  if ((long long)nx * ny * nz > 0)
-    stencil_spmv_kernel_sym<T><<<grid, macroc_cg::THREADS, smem, (cudaStream_t)stream>>>(
+  const long long n = (long long)nx * ny * nz;
+  const long long blocks = (n + macroc_cg::THREADS - 1) / macroc_cg::THREADS;
+  if (n > 0)
+    stencil_spmv_kernel_sym<T><<<(unsigned)blocks, macroc_cg::THREADS, 0,
+                                 (cudaStream_t)stream>>>(
         (const T*)A, (const T*)x, (T*)y, nx, ny, nz, partials, sc, st);
   return (int)cudaGetLastError();
 }
@@ -348,9 +247,7 @@ MACROC_SPMV_ENTRY(macroc_stencil_spmv_f32_f64, float, double)
 MACROC_SPMV_DOT_ENTRY(macroc_stencil_spmv_dot_f32, float)
 MACROC_SPMV_DOT_ENTRY(macroc_stencil_spmv_dot_f64, double)
 
-// the half-stencil p.q form, for a symmetric A: the same arguments;
-// partials holds one double per block of the form's grid
-// (ceil(nx/8) * ceil(ny/8) * ceil(nz/32))
+// the half-stencil p.q form, for a symmetric A: the same arguments
 int macroc_stencil_spmv_dot_sym_f32(const void* A, const void* x, void* y, int nx, int ny,
                                     int nz, double* partials, double* sc, int* st,
                                     void* stream) {

@@ -18,8 +18,6 @@ Nothing falls back from one to the other.
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 
@@ -241,15 +239,11 @@ def stencil_matvec_dot_sym(A_soa, p, q, state) -> None:
     """The half-stencil p·q form (``stencil_spmv_kernel_sym<T>``) for a
     symmetric A on CUDA tensors, its plain version on CPU tensors: q = A p
     from blocks 13..26 of A alone, and p·q and α into ``state``.  The same
-    arguments as :func:`stencil_matvec_dot`; ``state.partials`` grows to the
-    form's block count where it is short.  Counts its launches in
+    arguments as :func:`stencil_matvec_dot`.  Counts its launches in
     ``stencil_matvec.launches`` (it is K1) and in
     ``stencil_matvec_dot_sym.launches``."""
     if not A_soa.is_cuda:
         return stencil_matvec_dot_sym_plain(A_soa, p, q, state)
-    blocks = math.prod(-(-n // t) for n, t in zip(A_soa.shape[-3:], SYM_TILE))
-    if state.partials is not None and state.partials.numel() < blocks:
-        state.partials = state.partials.new_empty(blocks)
     _launch_dot(_ENTRY_DOT_SYM, "stencil_matvec_dot_sym", A_soa, p, q, state)
     stencil_matvec_dot_sym.launches += 1
 
@@ -288,9 +282,6 @@ def _launch_dot(entries, what, A_soa, p, q, state) -> None:
 
 stencil_matvec_dot.launches = 0
 stencil_matvec_dot_sym.launches = 0
-#: the half-stencil form's block: SYM_TY x SYM_TZ nodes of a j-k plane
-#: through SYM_PLANES planes along i (csrc/stencil_spmv.cu), as (i, j, k)
-SYM_TILE = (8, 8, 32)
 _ENTRY_DOT = {
     torch.float32: "macroc_stencil_spmv_dot_f32",
     torch.float64: "macroc_stencil_spmv_dot_f64",
