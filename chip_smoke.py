@@ -47,8 +47,16 @@ non-zero without the result line):
                and the CLI on the main line with -pc_type jacobi (the
                benchmark's Jacobi cell), with the fused kernels' counters
                and its operators' asymmetry read around it;
+  4c. j2     — the J2 return-map kernel (csrc/j2_return.cu) against its
+               plain version at the 128^3 main path's 16,777,216 GP slots,
+               f32 and f64, on a field about half plastic (the plastic
+               flags equal away from yield), two launches bitwise equal;
+               timed beside the plain version and its bound; one
+               homogenize's peak above its inputs against its outputs'
+               bytes, beside the plain version's;
   5. goldens — the four J2 CG goldens, the GMRES golden and the FE² golden
-               (tests/goldens/*.json) at f64 through the kernels;
+               (tests/goldens/*.json) at f64 through the kernels (the J2
+               ones through the return-map kernel);
   6. main    — ``macroc_tpu_torch.cli`` on the 128^3 J2 + MG bending case,
                3 time steps in f32, with the kernels' launch counters read
                around it;
@@ -864,6 +872,109 @@ def phase_cg(dev, path_shapes):
     return kern, launches
 
 
+# the J2 return-map kernel: the 128^3 main path's GP slots (node layout,
+# the trailing element slots padded), a field about half plastic
+J2_GPS = (128, 128, 128, 8)
+J2_FLOPS = (140, 216)  # operations a GP, and those a plastic GP adds (the tangent)
+
+
+def j2_field(gps, dev):
+    """(eps, eps_p, alpha) in float64 on ``dev``: random strain directions
+    with magnitudes spread from 0 to about twice first yield (~Sy/E), from
+    a state that already carries plastic strain, so about half the GPs
+    yield and some lie within roundoff of yield."""
+    rng = np.random.default_rng(15)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    eps = t(rng.standard_normal(gps + (6,))).mul_(1.5e-3).mul_(t(rng.random(gps + (1,))))
+    eps_p = t(rng.standard_normal(gps + (6,))).mul_(1e-4)
+    alpha = t(rng.standard_normal(gps)).abs_().mul_(1e-4)
+    return eps, eps_p, alpha
+
+
+def j2_compare(got, want, tol, Sy):
+    """Max abs error, and max rel error per output (max abs difference over
+    the plain output's max magnitude), of the kernel's outputs against the
+    plain version's; ``plastic`` must agree wherever |f_trial| > tol Sy,
+    and the tangent is compared where it does (at yield it jumps from C to
+    C_ep)."""
+    names = ("stress", "ctan", "eps_p", "alpha", "f_trial")
+    same = got[5] == want[5]
+    flips = int((~same).sum())
+    near = want[4].abs() <= tol * Sy
+    check(bool((same | near).all()), f"j2: plastic differs {flips} times away from yield")
+    rel, abs_err = {}, 0.0
+    for name, g, w in zip(names, got, want):
+        d = (g - w).abs()
+        if name == "ctan":
+            d = d * same[..., None, None]
+        abs_err = max(abs_err, float(d.max()))
+        rel[name] = float(d.max() / w.abs().max())
+    return abs_err, rel, flips
+
+
+def phase_j2(dev):
+    """The J2 return-map kernel (csrc/j2_return.cu) against its plain
+    version (j2_radial_return) at the 128^3 main path's 16,777,216 GP
+    slots, f32 and f64, about half plastic, two launches bitwise equal;
+    timed at f32 beside the plain version and its bound; one
+    ``J2Engine.homogenize``'s peak above what it is given against its
+    outputs' bytes, beside the plain version's."""
+    from macroc_tpu_torch import MaterialParams
+    from macroc_tpu_torch.constitutive import J2Engine, J2State
+    from macroc_tpu_torch.constitutive.elastic import elastic_matrix
+    from macroc_tpu_torch.ops.j2_return import j2_return, j2_return_plain
+
+    mat = MaterialParams()
+    fields = j2_field(J2_GPS, dev)
+    n = math.prod(J2_GPS)
+    out = {}
+    for dtype, tol in TOLS.items():
+        eps, eps_p, alpha = (f.to(dtype) for f in fields)
+        C = torch.as_tensor(elastic_matrix(mat), dtype=dtype, device=dev)
+        got = j2_return(eps, eps_p, alpha, mat, C)
+        again = j2_return(eps, eps_p, alpha, mat, C)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        del again
+        want = j2_return_plain(eps, eps_p, alpha, mat, C)
+        abs_err, rel, flips = j2_compare(got, want, tol, mat.Sy)
+        share = float(got[5].float().mean())
+        log(f"[j2] {J2_GPS} GPs {str(dtype)[6:]}: plastic share {share:.4f}, flags that differ "
+            f"{flips} (all within {tol:g} Sy of yield); max rel err vs plain "
+            + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+            + f" (bound {tol:g}); repeat bitwise {same}")
+        check(same and all(v < tol for v in rel.values()) and 0.3 < share < 0.7,
+              f"j2: the kernel disagrees with its plain version at {dtype}")
+        del want
+        n_plastic = int(got[5].sum())
+        del got
+        size = eps.element_size()
+        nbytes = n * (13 * size + 50 * size + 1)
+        flops = n * J2_FLOPS[0] + n_plastic * J2_FLOPS[1]
+        bound_ms, bound_by = bound(nbytes, flops)
+        ms = time_ms(lambda: j2_return(eps, eps_p, alpha, mat, C), 20)
+        plain_ms = time_ms(lambda: j2_return_plain(eps, eps_p, alpha, mat, C), 3)
+        eng, state = J2Engine(mat, dtype, dev), J2State(eps_p=eps_p, alpha=alpha)
+        peak = peak_gib(lambda: eng.homogenize(eps, state))
+        plain_peak = peak_gib(lambda: j2_return_plain(eps, eps_p, alpha, mat, C))
+        # the outputs: stress, ctan, eps_p, alpha, f_trial, plastic, cost
+        reckoned = n * (51 * size + 1) / 2**30
+        log(f"[j2] {str(dtype)[6:]}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+            f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e9:.3f} GB, {flops / 1e9:.2f} GFLOP), "
+            f"{bound_ms / ms:.3f} of it, {nbytes / ms / 1e6:.1f} GB/s; one homogenize's peak "
+            f"above its inputs {peak:.4f} GiB against its outputs' {reckoned:.4f} GiB "
+            f"(bound +{64 / 1024:.4f}); the plain return map's {plain_peak:.4f} GiB")
+        check(peak <= reckoned + 64 / 1024, "j2: homogenize allocates beyond its outputs")
+        out[dtype] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=None, max_rel_err=rel,
+                          peak_gib=peak, plain_peak_gib=plain_peak)
+        del eps, eps_p, alpha, state
+    kern = out[torch.float32]
+    kern.update(library_note="no single PyTorch call does a J2 return map",
+                f64={k: out[torch.float64][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                                        "bound_ms", "peak_gib")})
+    return kern
+
+
 def golden_configs():
     from macroc_tpu_torch import MacroConfig, MaterialParams
 
@@ -928,13 +1039,19 @@ def golden_failures(name, got, golden):
 
 
 def phase_goldens(dev):
+    """The goldens at f64 on the card; every J2 one (all but the FE² one)
+    through the return-map kernel."""
+    from macroc_tpu_torch.constitutive import engine_kind
+    from macroc_tpu_torch.ops.j2_return import j2_return
     from macroc_tpu_torch.problem import run_summary
 
     for name, cfg in golden_configs().items():
         with open(os.path.join(GOLDEN_DIR, f"{name}.json")) as f:
             golden = json.load(f)
         t0 = time.perf_counter()
+        j2_return.launches = 0
         got = run_summary(cfg, dev)
+        j2_launches = j2_return.launches
         res_dev = max(
             float(np.max(np.abs(np.subtract(gs["res_norms"], es["res_norms"]))
                          / np.maximum(np.abs(es["res_norms"]), 1e-300)))
@@ -944,9 +1061,11 @@ def phase_goldens(dev):
         log(f"[golden] {name}: {'PASS' if not bad else 'FAIL'} in "
             f"{time.perf_counter() - t0:.2f} s; KSP its "
             f"{[s['ksp_its'] for s in got['steps']]} (golden "
-            f"{[s['ksp_its'] for s in golden['steps']]}); max |RES| rel dev {res_dev:.2e}"
-            + (f"; {bad}" if bad else ""))
+            f"{[s['ksp_its'] for s in golden['steps']]}); max |RES| rel dev {res_dev:.2e}; "
+            f"j2_return launches {j2_launches}" + (f"; {bad}" if bad else ""))
         check(not bad, f"golden {name}")
+        check((j2_launches > 0) == (engine_kind(cfg) == "j2"),
+              f"golden {name}: the J2 kernel ran {j2_launches} times")
 
 
 def drive_cli(tag, flags, out_dir=None, ckpt_dir=None, need=("K1", "K2")):
@@ -959,6 +1078,7 @@ def drive_cli(tag, flags, out_dir=None, ckpt_dir=None, need=("K1", "K2")):
     from macroc_tpu_torch import cli
     from macroc_tpu_torch.ops.assembly import assemble_stencil_soa_kernel
     from macroc_tpu_torch.ops.cg_fused import cg_update_p, cg_update_xr
+    from macroc_tpu_torch.ops.j2_return import j2_return
     from macroc_tpu_torch.ops.stencil_spmv import (
         stencil_matvec,
         stencil_matvec_dot,
@@ -977,7 +1097,7 @@ def drive_cli(tag, flags, out_dir=None, ckpt_dir=None, need=("K1", "K2")):
         stencil_matvec.launches = stencil_matvec.narrow_launches = 0
         stencil_matvec_dot.launches = stencil_matvec_dot_sym.launches = 0
         cg_update_xr.launches = cg_update_p.launches = 0
-        assemble_stencil_soa_kernel.launches = 0
+        assemble_stencil_soa_kernel.launches = j2_return.launches = 0
         result = cli.run(argv)
         launches = dict(K1=stencil_matvec.launches,
                         K1_narrow=stencil_matvec.narrow_launches,
@@ -985,7 +1105,8 @@ def drive_cli(tag, flags, out_dir=None, ckpt_dir=None, need=("K1", "K2")):
                         K1_dot=stencil_matvec_dot.launches,
                         K1_dot_sym=stencil_matvec_dot_sym.launches,
                         cg_update_xr=cg_update_xr.launches,
-                        cg_update_p=cg_update_p.launches)
+                        cg_update_p=cg_update_p.launches,
+                        j2_return=j2_return.launches)
     peak = torch.cuda.max_memory_allocated()
     maxits = cli.parse_cli(argv).ksp_maxits
     for h in result["history"]:
@@ -1001,7 +1122,8 @@ def drive_cli(tag, flags, out_dir=None, ckpt_dir=None, need=("K1", "K2")):
     log(f"[{tag}] launches during the run: K1 {launches['K1']} (narrow operator "
         f"{launches['K1_narrow']}, p.q form {launches['K1_dot']}, half-stencil p.q form "
         f"{launches['K1_dot_sym']}), K2 {launches['K2']}, "
-        f"cg_update_xr {launches['cg_update_xr']}, cg_update_p {launches['cg_update_p']}; "
+        f"cg_update_xr {launches['cg_update_xr']}, cg_update_p {launches['cg_update_p']}, "
+        f"j2_return {launches['j2_return']}; "
         f"peak device memory {peak / 2**30:.2f} GiB ({base / 2**30:.2f} GiB held "
         f"before the run); phases (s) "
         + json.dumps({k: round(v, 4) for k, v in result["phases"].items()}))
@@ -1033,7 +1155,7 @@ def compare_rows(tag, got, want):
 
 
 def phase_main(dev):
-    launches = drive_cli("main", MAIN_FLAGS)[1]
+    launches = drive_cli("main", MAIN_FLAGS, need=("K1", "K2", "j2_return"))[1]
     # MG preconditions through the host loop: full K1, no p.q form
     check(launches["K1_dot"] == launches["K1_dot_sym"] == 0, "main: an MG solve took the fused route")
     return launches
@@ -1789,7 +1911,7 @@ def phase_scripts(dev):
     return launches
 
 
-PHASES = ("k1", "k1v1", "k2", "cg", "goldens", "main", "solvers", "checkpoint", "profile",
+PHASES = ("k1", "k1v1", "k2", "cg", "j2", "goldens", "main", "solvers", "checkpoint", "profile",
           "microfe", "fe2", "dist", "bench", "scripts")
 
 
@@ -1882,6 +2004,15 @@ def main():
         kernels.append(dict(name=name, route="cuda", source=f"macroc_tpu_torch/csrc/{src}",
                             replaces=port_only, launches=by[path], launches_by_path=by,
                             **cg_kern[key]))
+    # the J2 return map (port-only): ``launches`` is the 128^3 J2 main path's
+    kernels.append(dict(
+        name="j2_return", route="cuda", source="macroc_tpu_torch/csrc/j2_return.cu",
+        replaces=("none: port-only; the JAX package's J2Engine.homogenize "
+                  "(macroc_tpu/constitutive/j2.py:149-210) is jnp code that XLA fuses"),
+        launches=got["main"]["j2_return"],
+        launches_by_path={"j2_128": got["main"]["j2_return"],
+                          "j2_128_jacobi": cg_launches["j2_return"]},
+        **got["j2"]))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

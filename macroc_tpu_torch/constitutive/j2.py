@@ -151,12 +151,15 @@ class J2Engine:
         )
 
     def homogenize(self, eps: torch.Tensor, state: J2State) -> HomogenizeResult:
-        mat = self.mat
-        stress, ctan, eps_p, alpha, f_trial, plastic = j2_radial_return(
-            eps, state.eps_p, state.alpha, mat.lam, mat.mu, mat.Sy, mat.Ka,
-            C=self._C,
-        )
-        cost = 1.0 + plastic.to(self.dtype)
+        """The return map as one kernel on CUDA tensors
+        (``ops/j2_return.py``), ``j2_radial_return`` on CPU tensors."""
+        # imported here: ops/j2_return.py imports this module
+        from macroc_tpu_torch.ops.j2_return import j2_return
+
+        stress, ctan, eps_p, alpha, f_trial, plastic = j2_return(
+            eps, state.eps_p, state.alpha, self.mat, self._C)
+        # 1 + plastic, in place: no second (...,) temporary
+        cost = plastic.to(self.dtype).add_(1.0)
         return HomogenizeResult(
             stress=stress,
             ctan=ctan,

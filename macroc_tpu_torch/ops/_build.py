@@ -25,7 +25,7 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 SOURCES = ("stencil_spmv.cu", "stencil_spmv_v1.cu", "assembly_fused.cu",
-           "assembly_combine.cu", "cg_fused.cu")
+           "assembly_combine.cu", "cg_fused.cu", "j2_return.cu")
 #: headers the sources include (hashed with them)
 HEADERS = ("cg_state.cuh",)
 BUILD_ROOT = PKG_DIR.parent / "build" / "kernels"
@@ -68,6 +68,10 @@ _SIGNATURES = {
     # (Ke, A, nx, ny, nz, stream)
     "macroc_assembly_combine_f32": (_P, _P, _I, _I, _I, _P),
     "macroc_assembly_combine_f64": (_P, _P, _I, _I, _I, _P),
+    # (eps, eps_p, alpha, stress, ctan, eps_p_new, alpha_new, f_trial,
+    #  plastic, N, host double[43] constants, stream)
+    "macroc_j2_return_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _P, _P),
+    "macroc_j2_return_f64": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _P, _P),
     # (host int32[243*8] table)
     "macroc_set_combine_map": (_P,),
     # (error code) -> const char*
