@@ -23,18 +23,25 @@
 // Bound: device memory.  Per GP 13 values in and 50 values plus one byte
 // out: 52 B read and 201 B written at f32, 4.245 GB at 128^3 nodes x 8
 // GPs, 1.267 ms at 3.35 TB/s; about 356 operations a GP (140 where
-// elastic) are far below the card's rate.  Design: the 6-vectors move as
-// three 2-value vectors (float2, double2), the tangent as 16-byte vectors
-// (nine float4 or eighteen double2 per GP); a warp's stores of one row
-// each touch 32 sectors, and together its nine fill the 4,608 contiguous
-// bytes of its 32 GPs' tangents, which L2 merges into whole lines before
-// they go to device memory.
+// elastic) are far below the card's rate.  Design: a block takes GPS
+// consecutive GPs (128 at f32, 64 at f64) and stages its rows through
+// 24 KB of shared memory, so every device-memory access is a whole
+// 16-byte vector of consecutive threads on consecutive addresses: the
+// block loads its eps and eps_p rows coalesced into shared memory, each
+// thread computes its GP from there and writes its stress, eps_p_new and
+// 36 tangent values back into shared memory (the 6-vectors as 2-value
+// vectors, the tangent as 16-byte vectors: conflict-free at f32), and the
+// block copies the three out coalesced.  alpha, alpha_new, f_trial and
+// plastic move one value a thread, already coalesced.  The first form
+// (one thread's 144 tangent bytes stored straight to device memory, each
+// warp store touching 32 sectors) ran at 0.34 of the bound.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int THREADS = 256;
+// GPs (and threads) per block: 48 values of T each in shared memory, 24 KB
+template <typename T> constexpr int GPS = 512 / sizeof(T);
 
 template <typename T> struct J2Params {
   T C[36];    // the elastic matrix, row-major: sigma = C eps (engineering)
@@ -69,9 +76,9 @@ template <typename T> struct Vec;
 template <> struct Vec<float> { using two = float2; using wide = float4; };
 template <> struct Vec<double> { using two = double2; using wide = double2; };
 
-// N values of T from/to 16-byte-aligned rows, in vectors of type VT
+// one thread's N values of T from/to its aligned row, in vectors of type VT
 template <typename VT, typename T, int N>
-__device__ __forceinline__ void load(const T* __restrict__ src, T (&v)[N]) {
+__device__ __forceinline__ void load(const T* src, T (&v)[N]) {
   constexpr int V = sizeof(VT) / sizeof(T);
 #pragma unroll
   for (int k = 0; k < N / V; ++k) {
@@ -82,7 +89,7 @@ __device__ __forceinline__ void load(const T* __restrict__ src, T (&v)[N]) {
 }
 
 template <typename VT, typename T, int N>
-__device__ __forceinline__ void store(T* __restrict__ dst, const T (&v)[N]) {
+__device__ __forceinline__ void store(T* dst, const T (&v)[N]) {
   constexpr int V = sizeof(VT) / sizeof(T);
 #pragma unroll
   for (int k = 0; k < N / V; ++k) {
@@ -93,8 +100,21 @@ __device__ __forceinline__ void store(T* __restrict__ dst, const T (&v)[N]) {
   }
 }
 
+// the block's count consecutive values between device and shared memory,
+// both 16-byte aligned: 16-byte vectors, then the ragged tail one by one
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void block_copy(T* __restrict__ dst, const T* __restrict__ src,
+                                           int count) {
+  using VW = typename Vec<T>::wide;
+  constexpr int V = sizeof(VW) / sizeof(T);
+  const int nv = count / V;
+  for (int i = threadIdx.x; i < nv; i += GPS<T>)
+    reinterpret_cast<VW*>(dst)[i] = reinterpret_cast<const VW*>(src)[i];
+  for (int i = nv * V + threadIdx.x; i < count; i += GPS<T>) dst[i] = src[i];
+}
+
+template <typename T>
+__global__ void __launch_bounds__(GPS<T>)
 j2_return_kernel(const T* __restrict__ eps, const T* __restrict__ eps_p,
                  const T* __restrict__ alpha, T* __restrict__ stress, T* __restrict__ ctan,
                  T* __restrict__ eps_p_new, T* __restrict__ alpha_new,
@@ -102,68 +122,82 @@ j2_return_kernel(const T* __restrict__ eps, const T* __restrict__ eps_p,
                  const J2Params<T> P) {
   using V2 = typename Vec<T>::two;
   using VW = typename Vec<T>::wide;
-  const long long g = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (g >= N) return;
-  T e[6], ep[6];
-  load<V2>(eps + 6 * g, e);
-  load<V2>(eps_p + 6 * g, ep);
-  const T al = alpha[g];
+  constexpr int B = GPS<T>;
+  // the block's rows: eps then stress, eps_p then eps_p_new, the tangents
+  __shared__ __align__(16) T s_e[6 * B], s_p[6 * B], s_c[36 * B];
+  const long long g0 = (long long)blockIdx.x * B;
+  const int nb = (int)(N - g0 < B ? N - g0 : B);
+  block_copy(s_e, eps + 6 * g0, 6 * nb);
+  block_copy(s_p, eps_p + 6 * g0, 6 * nb);
+  __syncthreads();
+  const int t = threadIdx.x;
+  if (t < nb) {
+    const long long g = g0 + t;
+    T e[6], ep[6];
+    load<V2>(s_e + 6 * t, e);
+    load<V2>(s_p + 6 * t, ep);
+    const T al = alpha[g];
 #pragma unroll
-  for (int k = 0; k < 6; ++k) e[k] = sub(e[k], ep[k]);
+    for (int k = 0; k < 6; ++k) e[k] = sub(e[k], ep[k]);
 
-  // trial stress, deviator and its norm
-  T sig[6];
+    // trial stress, deviator and its norm
+    T sig[6];
 #pragma unroll
-  for (int i = 0; i < 6; ++i) {
-    T acc = mul(e[0], P.C[6 * i]);
+    for (int i = 0; i < 6; ++i) {
+      T acc = mul(e[0], P.C[6 * i]);
 #pragma unroll
-    for (int j = 1; j < 6; ++j) acc = add(acc, mul(e[j], P.C[6 * i + j]));
-    sig[i] = acc;
-  }
-  const T p = quo(add(add(sig[0], sig[1]), sig[2]), T(3));
-  T s[6];
-#pragma unroll
-  for (int k = 0; k < 6; ++k) s[k] = k < 3 ? sub(sig[k], p) : sig[k];
-  const T sn = add(add(mul(s[0], s[0]), mul(s[1], s[1])), mul(s[2], s[2]));
-  const T ss = add(add(mul(s[3], s[3]), mul(s[4], s[4])), mul(s[5], s[5]));
-  const T snorm = root(add(sn, mul(T(2), ss)));
-
-  // yield test and return
-  const T ft = sub(snorm, mul(P.sq23, add(P.Sy, mul(P.Ka, al))));
-  const bool pl = ft > T(0);
-  const T dg = pl ? quo(ft, P.hden) : T(0);
-  const T safe = snorm > T(1e-30) ? snorm : T(1e-30);
-  T n[6];
-#pragma unroll
-  for (int k = 0; k < 6; ++k) n[k] = quo(s[k], safe);
-  const T gm = mul(P.mu2, dg);
-  T out[6];
-#pragma unroll
-  for (int k = 0; k < 6; ++k) out[k] = sub(sig[k], mul(gm, n[k]));
-  store<V2>(stress + 6 * g, out);
-#pragma unroll
-  for (int k = 0; k < 6; ++k)
-    out[k] = pl ? add(ep[k], mul(dg, k < 3 ? n[k] : mul(n[k], T(2)))) : ep[k];
-  store<V2>(eps_p_new + 6 * g, out);
-  alpha_new[g] = pl ? add(al, mul(P.sq23, dg)) : al;
-  f_trial[g] = ft;
-  plastic[g] = pl;
-
-  // consistent tangent: (2 mu theta I_dev + kappa 1x1) - (2 mu thetabar) n x n
-  const T theta = sub(T(1), quo(gm, safe));
-  const T thetabar = sub(P.tb0, sub(T(1), theta));
-  const T a = mul(P.mu2, theta), b = mul(P.mu2, thetabar);
-  T c[36];
-#pragma unroll
-  for (int i = 0; i < 6; ++i) {
-#pragma unroll
-    for (int j = 0; j < 6; ++j) {
-      c[6 * i + j] = pl ? sub(add(mul(a, T(i_dev(i, j))), mul(P.kappa, T(ones33(i, j)))),
-                              mul(mul(n[i], n[j]), b))
-                        : P.C[6 * i + j];
+      for (int j = 1; j < 6; ++j) acc = add(acc, mul(e[j], P.C[6 * i + j]));
+      sig[i] = acc;
     }
+    const T p = quo(add(add(sig[0], sig[1]), sig[2]), T(3));
+    T s[6];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) s[k] = k < 3 ? sub(sig[k], p) : sig[k];
+    const T sn = add(add(mul(s[0], s[0]), mul(s[1], s[1])), mul(s[2], s[2]));
+    const T ss = add(add(mul(s[3], s[3]), mul(s[4], s[4])), mul(s[5], s[5]));
+    const T snorm = root(add(sn, mul(T(2), ss)));
+
+    // yield test and return
+    const T ft = sub(snorm, mul(P.sq23, add(P.Sy, mul(P.Ka, al))));
+    const bool pl = ft > T(0);
+    const T dg = pl ? quo(ft, P.hden) : T(0);
+    const T safe = snorm > T(1e-30) ? snorm : T(1e-30);
+    T n[6];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) n[k] = quo(s[k], safe);
+    const T gm = mul(P.mu2, dg);
+    T out[6];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) out[k] = sub(sig[k], mul(gm, n[k]));
+    store<V2>(s_e + 6 * t, out);
+#pragma unroll
+    for (int k = 0; k < 6; ++k)
+      out[k] = pl ? add(ep[k], mul(dg, k < 3 ? n[k] : mul(n[k], T(2)))) : ep[k];
+    store<V2>(s_p + 6 * t, out);
+    alpha_new[g] = pl ? add(al, mul(P.sq23, dg)) : al;
+    f_trial[g] = ft;
+    plastic[g] = pl;
+
+    // consistent tangent: (2 mu theta I_dev + kappa 1x1) - (2 mu thetabar) n x n
+    const T theta = sub(T(1), quo(gm, safe));
+    const T thetabar = sub(P.tb0, sub(T(1), theta));
+    const T a = mul(P.mu2, theta), b = mul(P.mu2, thetabar);
+    T c[36];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+#pragma unroll
+      for (int j = 0; j < 6; ++j) {
+        c[6 * i + j] = pl ? sub(add(mul(a, T(i_dev(i, j))), mul(P.kappa, T(ones33(i, j)))),
+                                mul(mul(n[i], n[j]), b))
+                          : P.C[6 * i + j];
+      }
+    }
+    store<VW>(s_c + 36 * t, c);
   }
-  store<VW>(ctan + 36 * g, c);
+  __syncthreads();
+  block_copy(stress + 6 * g0, s_e, 6 * nb);
+  block_copy(eps_p_new + 6 * g0, s_p, 6 * nb);
+  block_copy(ctan + 36 * g0, s_c, 36 * nb);
 }
 
 template <typename T>
@@ -180,8 +214,8 @@ int launch(const void* eps, const void* eps_p, const void* alpha, void* stress, 
   P.tb0 = T(host[41]);
   P.sq23 = T(host[42]);
   if (N > 0) {
-    const long long blocks = (N + THREADS - 1) / THREADS;
-    j2_return_kernel<T><<<(unsigned)blocks, THREADS, 0, stream>>>(
+    const long long blocks = (N + GPS<T> - 1) / GPS<T>;
+    j2_return_kernel<T><<<(unsigned)blocks, GPS<T>, 0, stream>>>(
         static_cast<const T*>(eps), static_cast<const T*>(eps_p),
         static_cast<const T*>(alpha), static_cast<T*>(stress), static_cast<T*>(ctan),
         static_cast<T*>(eps_p_new), static_cast<T*>(alpha_new), static_cast<T*>(f_trial),
