@@ -55,8 +55,9 @@ def _minor(v, k: int):
 
 def j2_radial_return(eps, eps_p, alpha, lam, mu, Sy, Ka, C=None,
                      tangent: bool = True):
-    """Functional radial-return map, shared by J2Engine (scalar material)
-    and the micro-FE engine (per-micro-element material fields).
+    """Functional radial-return map: the plain version of J2Engine's
+    kernel (``ops/j2_return.py``, scalar material), and the micro-FE
+    engine's map (per-micro-element material fields).
 
     lam, mu, Sy, Ka are Python floats or tensors that broadcast against the
     batch eps[..., 0].  The trial stress is lam tr(e) I + 2 mu e (shear rows
