@@ -927,10 +927,10 @@ def phase_j2(dev):
     mat = MaterialParams()
     fields = j2_field(J2_GPS, dev)
     n = math.prod(J2_GPS)
+    C = elastic_matrix(mat)
     out = {}
     for dtype, tol in TOLS.items():
         eps, eps_p, alpha = (f.to(dtype) for f in fields)
-        C = torch.as_tensor(elastic_matrix(mat), dtype=dtype, device=dev)
         got = j2_return(eps, eps_p, alpha, mat, C)
         again = j2_return(eps, eps_p, alpha, mat, C)
         same = all(torch.equal(a, b) for a, b in zip(got, again))

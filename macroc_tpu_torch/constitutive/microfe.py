@@ -55,13 +55,13 @@ from macroc_tpu_torch.config import (
 from macroc_tpu_torch.bc import BCData, apply_bc_stencil_flat
 from macroc_tpu_torch.constitutive.base import HomogenizeResult
 from macroc_tpu_torch.constitutive.elastic import elastic_matrix
-from macroc_tpu_torch.constitutive.j2 import j2_radial_return
 from macroc_tpu_torch.fem.element import NODE_OFFSETS, b_matrix
 from macroc_tpu_torch.fem.kernels import (
     assemble_residual,
     assemble_stencil_flat,
     compute_strains,
 )
+from macroc_tpu_torch.ops.j2_return import j2_radial_return
 from macroc_tpu_torch.ops.stencil import stencil_matvec_flat
 from macroc_tpu_torch.solve.cg import cg_solve_batched
 from macroc_tpu_torch.solve.precond import jacobi_precond_flat

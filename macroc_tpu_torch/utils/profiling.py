@@ -149,29 +149,48 @@ class Timings:
 
 
 class PhaseTimer:
+    """Seconds and calls per named phase (-log_phases).  On a CUDA device it
+    also keeps, per phase, the device-memory high-water mark
+    (``torch.cuda.max_memory_allocated``) wherever a call of the phase
+    raised it: the innermost phase with the run's largest value set the
+    run's peak."""
+
     def __init__(self, device: torch.device):
         self.sync = device.type == "cuda"
+        self.device = device
         self.totals: Dict[str, float] = defaultdict(float)
         self.counts: Dict[str, int] = defaultdict(int)
+        self.peaks: Dict[str, int] = {}
 
     @contextlib.contextmanager
     def phase(self, name: str) -> Iterator[None]:
         if self.sync:
             torch.cuda.synchronize()
+            high = torch.cuda.max_memory_allocated(self.device)
         t0 = time.perf_counter()
         try:
             yield
         finally:
             if self.sync:
                 torch.cuda.synchronize()
+                now = torch.cuda.max_memory_allocated(self.device)
+                if now > high:
+                    self.peaks[name] = max(self.peaks.get(name, 0), now)
             self.totals[name] += time.perf_counter() - t0
             self.counts[name] += 1
 
     def report(self) -> str:
-        lines = ["phase                   total_s      calls    mean_ms"]
+        """The phase table, slowest first; on a CUDA device a last column,
+        the high-water mark in GiB where the phase raised it (else -)."""
+        lines = ["phase                   total_s      calls    mean_ms"
+                 + ("   peak_gib" if self.sync else "")]
         for name in sorted(self.totals, key=self.totals.get, reverse=True):
             t, c = self.totals[name], self.counts[name]
-            lines.append(f"{name:<22} {t:>9.3f} {c:>10d} {t / c * 1e3:>10.2f}")
+            line = f"{name:<22} {t:>9.3f} {c:>10d} {t / c * 1e3:>10.2f}"
+            if self.sync:
+                peak = self.peaks.get(name)
+                line += f" {peak / 2**30:>10.4f}" if peak else f" {'-':>10}"
+            lines.append(line)
         return "\n".join(lines)
 
 

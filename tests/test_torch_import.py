@@ -83,9 +83,9 @@ def test_bench_entry_points_leave_jax_and_the_jax_package_out():
 
 
 # the port's scripts, each the counterpart of the JAX script of its name
-# without ``_torch`` (peak_phases_torch.py is the port's own)
+# without ``_torch``
 SCRIPTS = ["profile_newton_torch.py", "tune_microfe_torch.py", "_pancake_mg_check_torch.py",
-           "bisect_newton_torch.py", "scaling_sweep_torch.py", "peak_phases_torch.py"]
+           "bisect_newton_torch.py", "scaling_sweep_torch.py"]
 
 
 @pytest.mark.parametrize("script", SCRIPTS)

@@ -109,12 +109,28 @@ def test_cpu_tensors_take_the_plain_version():
     """On CPU tensors the wrapper is its plain version, bit for bit, and
     launches nothing."""
     eps, ep, al = _as(_inputs((3, 4, 8)), torch.float64, CPU)
-    C = torch.as_tensor(elastic_matrix(MAT))
+    C = elastic_matrix(MAT)
     before = j2_return.launches
     got = j2_return(eps, ep, al, MAT, C)
     want = j2_return_plain(eps, ep, al, MAT, C)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert j2_return.launches == before
+
+
+def test_both_routes_take_the_matrix_they_are_given():
+    """C is the one source of the elastic matrix: the kernel's launch
+    constants are its 36 values, the plain version computes with it (a
+    scaled C changes the answer), and a C of another shape raises."""
+    from macroc_tpu_torch.ops.j2_return import _params
+
+    C = 2.0 * elastic_matrix(MAT)
+    assert np.array_equal(_params(MAT, C)[:36], C.ravel())
+    eps, ep, al = _as(_inputs((3, 4, 8)), torch.float64, CPU)
+    got = j2_return(eps, ep, al, MAT, C)[0]
+    want = j2_return(eps, ep, al, MAT, elastic_matrix(MAT))[0]
+    assert not torch.allclose(got, want)
+    with pytest.raises(ValueError, match=r"\(6, 6\)"):
+        _params(MAT, C[:5])
 
 
 @pytest.mark.parametrize("name", sorted(n for n in _build._SIGNATURES if "j2_return" in n))
@@ -140,7 +156,7 @@ def cuda():
 @pytest.mark.parametrize("dtype,tol", TOLS)
 def test_kernel_matches_plain(cuda, dtype, tol):
     eps, ep, al = _as(_inputs((33, 17, 9, 8)), dtype, cuda)
-    C = torch.as_tensor(elastic_matrix(MAT), dtype=dtype, device=cuda)
+    C = elastic_matrix(MAT)
     got = j2_return(eps, ep, al, MAT, C)
     want = j2_return_plain(eps, ep, al, MAT, C)
     for g, w in zip(got, want):
@@ -162,7 +178,7 @@ def test_homogenize_counts_its_launches(cuda):
 @pytest.mark.gpu
 def test_kernel_rejects_bad_input(cuda):
     eps, ep, al = _as(_inputs((4, 6, 8)), torch.float32, cuda)
-    C = torch.as_tensor(elastic_matrix(MAT), dtype=torch.float32, device=cuda)
+    C = elastic_matrix(MAT)
     with pytest.raises(ValueError, match="contiguous"):
         j2_return(eps[:, 1:], ep[:, 1:], al[:, 1:], MAT, C)
     with pytest.raises(ValueError, match="dtype or device"):

@@ -33,7 +33,7 @@ from macroc_tpu.solve.cg import cg_solve as jax_cg
 from macroc_tpu.solve.precond import jacobi_precond_flat as jax_jacobi_flat
 from macroc_tpu_torch.bc import BCData, apply_bc_stencil_flat
 from macroc_tpu_torch.constitutive import J2Engine
-from macroc_tpu_torch.constitutive.j2 import j2_radial_return
+from macroc_tpu_torch.ops.j2_return import j2_radial_return
 from macroc_tpu_torch.constitutive.microfe import MicroFEEngine, MicroState
 from macroc_tpu_torch.fem.kernels import assemble_stencil_flat
 from macroc_tpu_torch.ops.stencil import stencil_matvec_flat
